@@ -1,0 +1,248 @@
+"""The SplaTAM SLAM loop: interleaved tracking, densification, mapping.
+
+Counterpart of ``splatam_tpu/slam/pipeline.py`` (`rgbd_slam`,
+`scripts/splatam.py:461-1010`) and of its config schema, so the same config
+dicts run in both. Not ported yet: checkpoint resume, wandb, separate
+tracking/densify resolutions, Inria densification, bundle adjustment and
+the depth-loss-threshold iteration doubling. Every raster ``layout`` runs the
+aligned kernels.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from splatam_torch.core.losses import compute_binned
+from splatam_torch.core.params import (
+    GAUSSIAN_KEYS,
+    Params,
+    Variables,
+    get_pose,
+    num_gaussians,
+    set_pose,
+)
+from splatam_torch.core.transforms import matrix_to_quaternion, pose_to_w2c
+from splatam_torch.device import resolve_device
+from splatam_torch.render.binning import RasterConfig
+from splatam_torch.slam.densify import add_new_gaussians
+from splatam_torch.slam.initialize import initialize_first_timestep
+from splatam_torch.slam.keyframes import keyframe_selection_overlap
+from splatam_torch.slam.mapping import (
+    init_mapping_optimizer,
+    map_step,
+    prune_gaussians,
+)
+from splatam_torch.slam.tracking import initialize_camera_pose, track_frame
+
+
+def as_frame(color, depth, device):
+    """(H,W,3) [0..255], (H,W,1) -> (3,H,W) [0..1], (1,H,W) on device."""
+    im = torch.as_tensor(
+        (np.transpose(np.asarray(color), (2, 0, 1)) / 255.0).astype(np.float32),
+        device=device,
+    )
+    d = torch.as_tensor(
+        np.transpose(np.asarray(depth), (2, 0, 1)).astype(np.float32),
+        device=device,
+    )
+    return im, d
+
+
+class SlamState:
+    """Host-side SLAM state: map, keyframes, trajectory and telemetry."""
+
+    def __init__(self):
+        self.params: Params = {}
+        self.variables: Variables = {}
+        self.keyframe_list: List[Dict] = []
+        self.gt_w2c_all: List[np.ndarray] = []
+        self.cam = None
+        self.intrinsics = None
+        self.first_w2c = None
+        self.scene_radius = 0.0
+        self.timing = {
+            "tracking_iter": [], "tracking_frame": [],
+            "mapping_iter": [], "mapping_frame": [],
+        }
+        # iterations run and renders made, for launch accounting
+        self.counts = {"tracking_iters": 0, "mapping_iters": 0,
+                       "densify_renders": 0}
+        self.nonfinite = {"tracking": 0, "mapping": 0}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rgbd_slam(config: Dict, dataset, progress: bool = True,
+              device=None) -> SlamState:
+    """Run SplaTAM over ``dataset`` (sequence of (color, depth, K, c2w)).
+
+    Runs on ``device`` (None means CUDA; raises when CUDA is absent)."""
+    dev = resolve_device(device)
+    cfg_track = config["tracking"]
+    cfg_map = config["mapping"]
+    raster_cfg = RasterConfig(**config.get("raster", {}))
+    rng = np.random.default_rng(config.get("seed", 0))
+    num_frames = config["data"].get("num_frames", -1)
+    if num_frames == -1:
+        num_frames = len(dataset)
+    state = SlamState()
+
+    color, depth, intrinsics, pose = dataset[0]
+    params, variables, k3, first_w2c, cam, scene_radius = initialize_first_timestep(
+        np.asarray(color), np.asarray(depth), np.asarray(intrinsics),
+        np.asarray(pose), num_frames, config["scene_radius_depth_ratio"],
+        config.get("gaussian_distribution", "isotropic"),
+        config.get("mean_sq_dist_method", "projective"), device=dev,
+    )
+    state.cam, state.intrinsics, state.first_w2c = cam, k3, first_w2c
+    state.scene_radius = scene_radius
+    gauss_lrs = {k: v for k, v in cfg_map["lrs"].items() if k in GAUSSIAN_KEYS}
+    nonfinite_track = torch.zeros((), dtype=torch.int32, device=dev)
+    nonfinite_map = torch.zeros((), dtype=torch.int32, device=dev)
+
+    for time_idx in range(num_frames):
+        color, depth, _, pose = dataset[time_idx]
+        gt_w2c = np.linalg.inv(np.asarray(pose, dtype=np.float64))
+        state.gt_w2c_all.append(gt_w2c)
+        frame_im, frame_depth = as_frame(color, depth, dev)
+
+        # --- tracking ---
+        t0 = time.time()
+        if time_idx > 0:
+            if cfg_track["use_gt_poses"]:
+                rel = torch.as_tensor(gt_w2c, dtype=torch.float32, device=dev)
+                set_pose(params, time_idx, matrix_to_quaternion(rel[:3, :3]),
+                         rel[:3, 3])
+            else:
+                rot0, tran0 = initialize_camera_pose(
+                    params, time_idx, cfg_track["forward_prop"]
+                )
+                n_iters = cfg_track["num_iters"]
+                res = track_frame(
+                    {k: params[k] for k in GAUSSIAN_KEYS}, rot0, tran0,
+                    frame_im, frame_depth, cam, raster_cfg, num_iters=n_iters,
+                    use_sil_for_loss=cfg_track["use_sil_for_loss"],
+                    sil_thres=cfg_track["sil_thres"],
+                    ignore_outlier_depth_loss=cfg_track["ignore_outlier_depth_loss"],
+                    loss_w_im=cfg_track["loss_weights"]["im"],
+                    loss_w_depth=cfg_track["loss_weights"]["depth"],
+                    lr_rot=cfg_track["lrs"]["cam_unnorm_rots"],
+                    lr_tran=cfg_track["lrs"]["cam_trans"],
+                    rebin_every=cfg_track.get("rebin_every", 10),
+                )
+                set_pose(params, time_idx, res.best_rot, res.best_tran)
+                nonfinite_track = nonfinite_track + res.nonfinite
+                state.counts["tracking_iters"] += n_iters
+                _sync(dev)
+                state.timing["tracking_iter"].append(
+                    (time.time() - t0) / max(n_iters, 1)
+                )
+        state.timing["tracking_frame"].append(time.time() - t0)
+
+        # --- densification + mapping ---
+        if time_idx == 0 or (time_idx + 1) % config["map_every"] == 0:
+            if cfg_map["add_new_gaussians"] and time_idx > 0:
+                params, variables, _ = add_new_gaussians(
+                    params, variables, frame_im, frame_depth, k3, cam,
+                    raster_cfg, cfg_map["sil_thres"], time_idx,
+                    config.get("gaussian_distribution", "isotropic"),
+                    pose=get_pose(params, time_idx),
+                )
+                state.counts["densify_renders"] += 1
+
+            curr_w2c = pose_to_w2c(*get_pose(params, time_idx)).cpu().numpy()
+            selected = keyframe_selection_overlap(
+                frame_depth.cpu().numpy(), curr_w2c, state.intrinsics,
+                state.keyframe_list[:-1], config["mapping_window_size"] - 2,
+                rng=rng,
+            )
+            selected_frames = [state.keyframe_list[i] for i in selected]
+            if state.keyframe_list:
+                selected_frames.append(state.keyframe_list[-1])
+            selected_frames.append(
+                {"id": time_idx, "est_w2c": curr_w2c, "im": frame_im,
+                 "depth": frame_depth}
+            )
+
+            t1 = time.time()
+            map_rebin = cfg_map.get("rebin_every", 10)
+            opt_state = init_mapping_optimizer(params)
+            # keyframe id -> [binning, iteration it was made, latest sat depth]
+            binned_cache: Dict[int, list] = {}
+            for it in range(cfg_map["num_iters"]):
+                kf = selected_frames[rng.integers(0, len(selected_frames))]
+                kf_rot, kf_tran = get_pose(params, kf["id"])
+                cached = None
+                if map_rebin:
+                    cached = binned_cache.get(kf["id"])
+                    if cached is None or it - cached[1] >= map_rebin:
+                        cap = None if cached is None else cached[2]
+                        cached = [
+                            compute_binned(params, kf_rot, kf_tran, cam,
+                                           raster_cfg, depth_cap=cap),
+                            it, None,
+                        ]
+                        binned_cache[kf["id"]] = cached
+                result = map_step(
+                    params, opt_state, kf_rot, kf_tran, kf["im"], kf["depth"],
+                    cam, raster_cfg, lrs=gauss_lrs,
+                    sil_thres=cfg_map["sil_thres"],
+                    use_sil_for_loss=cfg_map["use_sil_for_loss"],
+                    ignore_outlier_depth_loss=cfg_map["ignore_outlier_depth_loss"],
+                    loss_w_im=cfg_map["loss_weights"]["im"],
+                    loss_w_depth=cfg_map["loss_weights"]["depth"],
+                    binned=None if cached is None else cached[0],
+                )
+                if cached is not None:
+                    cached[2] = result.sat_depth
+                nonfinite_map = nonfinite_map + result.nonfinite.int()
+                mr = variables["max_2D_radius"]
+                variables["max_2D_radius"] = torch.where(
+                    result.seen, torch.maximum(result.radius.float(), mr), mr
+                )
+                if cfg_map.get("prune_gaussians", False):
+                    params, variables, changed = prune_gaussians(
+                        params, variables, opt_state, it,
+                        cfg_map["pruning_dict"], state.scene_radius,
+                    )
+                    if changed:
+                        binned_cache.clear()
+            state.counts["mapping_iters"] += cfg_map["num_iters"]
+            _sync(dev)
+            if cfg_map["num_iters"] > 0:
+                state.timing["mapping_iter"].append(
+                    (time.time() - t1) / cfg_map["num_iters"]
+                )
+            state.timing["mapping_frame"].append(time.time() - t1)
+
+        # --- keyframe bookkeeping ---
+        if (
+            time_idx == 0
+            or (time_idx + 1) % config["keyframe_every"] == 0
+            or time_idx == num_frames - 2
+        ) and np.isfinite(gt_w2c).all():
+            curr_w2c = pose_to_w2c(*get_pose(params, time_idx)).cpu().numpy()
+            state.keyframe_list.append(
+                {"id": time_idx, "est_w2c": curr_w2c, "im": frame_im,
+                 "depth": frame_depth}
+            )
+
+        if progress and (time_idx % 10 == 0 or time_idx == num_frames - 1):
+            print(f"frame {time_idx}/{num_frames}  "
+                  f"gaussians={num_gaussians(params)}")
+
+    state.params = params
+    state.variables = variables
+    state.nonfinite = {"tracking": int(nonfinite_track),
+                       "mapping": int(nonfinite_map)}
+    if any(state.nonfinite.values()):
+        print("[warn] skipped NaN/inf-loss iterations: "
+              f"tracking={state.nonfinite['tracking']} "
+              f"mapping={state.nonfinite['mapping']}")
+    return state

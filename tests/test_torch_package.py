@@ -1,0 +1,78 @@
+"""Package rules of the PyTorch port: no JAX, and no silent CPU fallback."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "splatam_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "splatam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import splatam_torch.run.synthetic_slam, splatam_torch.slam.pipeline\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def _entry_points():
+    from splatam_torch.render.camera import setup_camera
+    from splatam_torch.render.render_tiled import rasterize_tiled
+    from splatam_torch.run import synthetic_slam
+    from splatam_torch.slam.pipeline import rgbd_slam
+
+    pts = np.zeros((1, 3), np.float32)
+    cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
+    return {
+        "rasterize_tiled": lambda: rasterize_tiled(
+            pts, pts, np.ones(1, np.float32), pts, np.ones((1, 4), np.float32),
+            cam_cpu,
+        ),
+        "rgbd_slam": lambda: rgbd_slam({}, None),
+        "synthetic_slam.main": lambda: synthetic_slam.main(
+            ["--frames", "1", "--width", "16", "--height", "16"]
+        ),
+        "setup_camera": lambda: setup_camera(16, 16, np.eye(3), np.eye(4)),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["rasterize_tiled", "rgbd_slam", "synthetic_slam.main", "setup_camera"]
+)
+def test_entry_points_default_to_cuda(name, monkeypatch):
+    """With no device given, entry points ask for CUDA and raise without it
+    (here CUDA is absent, or hidden); they never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
