@@ -3,32 +3,51 @@
 
 Phases, each of which must pass:
 
-1. Build the compositing kernels (B1 ``csrc/raster_fwd.cu``, B2
-   ``csrc/raster_bwd.cu``) from this checkout with nvcc, and print the
-   toolchain and the card's name and power limit.
+1. Build the compositing kernels from this checkout with nvcc, one process
+   per source, all at once: aligned layout B1 ``csrc/raster_fwd.cu`` and
+   B2 ``csrc/raster_bwd.cu``; split layout B3a/B3b
+   ``csrc/raster_split_fwd.cu`` and B3c/B3d ``csrc/raster_split_bwd.cu``.
+   Print the toolchain and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
    ``tests/goldens``), a saturating scene, an empty scene, and ``bench.py``'s
    scene (200k gaussians at 1200x680) with the fused 6-channel mapping
-   features. Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5),
-   saturation depth exact, gradients 5e-5 of their largest magnitude.
-3. Time B1 and B2 on the 200k scene (CUDA events after warm-up) beside
-   their plain versions and their bound, and time one full mapping
-   iteration (forward + backward + Adam, binning frozen for 10 iterations).
-4. Drive the main path: ``splatam_torch.run.synthetic_slam`` at Replica
-   width (1200x680, tracking 40 / mapping 60 iterations, window 24,
-   keyframe every 5), with the kernels' launch counts set to 0 just before
-   and read just after; they must be > 0 and match the iterations run.
+   features; B3a-d also on an interior-only scene. Each split kernel gets
+   the plain version's inputs (carries included), and the composed split
+   render and its gradients are held against B1/B2 on the same scene.
+   Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5 against
+   the plain versions, 1e-6 split against aligned), saturation depth
+   exact, gradients 5e-5 of their largest magnitude.
+3. Time every kernel on the 200k scene (CUDA events after warm-up) beside
+   its plain version and its bound, and time one full mapping iteration
+   (forward + backward + Adam, binning frozen for 10 iterations).
+4. The SLAM path: ``splatam_torch.run.synthetic_slam`` at Replica width
+   (1200x680, tracking 40 / mapping 60 iterations, window 24, keyframe
+   every 5, 60 frames), with every kernel's launch count set to 0 just
+   before and read just after; they must match what each call site runs
+   (frame 0 resolves the SLAM renders' layout; the evaluation renders are
+   split, the dataset's ground-truth renders aligned).
+5. The offline path: ``splatam_torch.gs.offline.offline_splatting`` at
+   1200x680 on 10 synthetic frames with ``configs/replica/
+   gaussian_splatting.py`` as it is, cut to 500 iterations with the
+   densification schedule scaled to match; PSNR must rise and end above
+   20 dB, depth L1 below 5 cm; B3a-d launch once per iteration (B3a/B3b
+   also per densification and evaluation render), B1/B2 never.
+6. The refinement path: the SLAM map saved with ``save_params``, refined by
+   ``splatam_torch.gs.post_opt.post_splatam_opt`` with ``configs/replica/
+   post_splatam_opt.py`` cut to 300 iterations; its PSNR on those frames
+   must stay within 0.5 dB of the loaded map's or rise.
 
 The last lines are a JSON line of per-kernel numbers and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
 
-Usage: python3 chip_smoke.py [--frames N]
+Usage: python3 chip_smoke.py [--frames N]  (SLAM frames, default 60)
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -98,7 +117,8 @@ def golden_scenes():
 
 
 def small_scene(kind, seed=3):
-    """The saturating and empty scenes of tests/test_torch_raster.py."""
+    """The saturating and empty scenes of tests/test_torch_raster.py, and
+    the interior-only scene of tests/test_pallas.py."""
     rng = np.random.default_rng(seed)
     if kind == "saturating":
         n, w, h = 400, 64, 48
@@ -107,6 +127,20 @@ def small_scene(kind, seed=3):
         opac = np.full(n, 0.95)
         scales = np.full((n, 3), 0.25)
         quats = np.tile([1.0, 0, 0, 0], (n, 1))
+    elif kind == "interior_only":  # tests/test_pallas.py: one tile holds
+        # exactly one whole chunk of tiny gaussians (residue 0)
+        rng = np.random.default_rng(3)
+        n, w, h = 128, 64, 48
+        means = np.tile([[0.02, 0.02, 2.0]], (n, 1))
+        means[:, 2] += rng.uniform(0, 0.5, n)
+        feats = rng.uniform(0, 1, (n, 3))
+        opac = np.full(n, 0.4)
+        scales = np.full((n, 3), 0.002)
+        quats = np.tile([1.0, 0, 0, 0], (n, 1))
+        k = [[80.0, 0, w / 2], [0, 80.0, h / 2], [0, 0, 1]]
+        f32 = [np.asarray(x, np.float32)
+               for x in (means, feats, opac, scales, quats)]
+        return (*f32, w, h, k)
     else:  # empty: everything behind the camera
         n, w, h = 40, 48, 32
         means = np.stack([rng.uniform(-1.0, 1.0, n), rng.uniform(-0.8, 0.8, n),
@@ -196,7 +230,7 @@ class Setup:
                 self.grid_x, CHUNK)
 
 
-def scene_setup(scene, dev, mapping_feats=False):
+def scene_setup(scene, dev, mapping_feats=False, layout="aligned"):
     import torch
 
     from splatam_torch.core.losses import depth_silhouette_colors
@@ -215,7 +249,8 @@ def scene_setup(scene, dev, mapping_feats=False):
         t["feats"] = torch.cat(
             [t["feats"], depth_silhouette_colors(t["means"], cam.viewmatrix)], -1)
     proj = preprocess(t["means"], t["scales"], normalize(t["quats"]), cam)
-    binned = bin_gaussians_csr(proj, cam, RasterConfig(chunk=CHUNK),
+    binned = bin_gaussians_csr(proj, cam,
+                               RasterConfig(chunk=CHUNK, layout=layout),
                                opacities=t["opac"])
     attrs = pack_attrs(proj.means2d, proj.conic, t["opac"], proj.depths,
                        t["feats"])
@@ -231,37 +266,22 @@ def compare_kernels(name, s: Setup, rng, errs):
 
     out = {}
     for carry, nfeat in ((True, s.nfeat), (False, min(s.nfeat, 4))):
+        tag = f"{name} carry_depth={carry}"
         c1, a1 = raster.raster_fwd_cuda(*s.args, carry)
         torch.cuda.synchronize()
         c0, a0, evaluated = raster.raster_fwd_plain(*s.args, carry)
-        for label, got, ref, atol in (
-            ("color", c1, c0, FWD_ATOL), ("median depth", a1[:, 0], a0[:, 0], FWD_ATOL),
-            ("final T", a1[:, 1], a0[:, 1], FINAL_T_ATOL),
-        ):
-            if not torch.allclose(got, ref, atol=atol, rtol=FWD_RTOL):
-                fail(f"B1 {name} {label}: max err "
-                     f"{(got - ref).abs().max().item():.3g}")
-        if not torch.equal(a1[:, 2:], a0[:, 2:]):
-            fail(f"B1 {name}: saturation depth differs from the plain version")
-        e_fwd = max((c1 - c0).abs().max().item(),
-                    (a1[:, :2] - a0[:, :2]).abs().max().item())
+        e_fwd = max(check_close(f"B1 {tag} color", c1, c0, FWD_ATOL),
+                    check_close(f"B1 {tag} median depth", a1[:, 0], a0[:, 0],
+                                FWD_ATOL),
+                    check_close(f"B1 {tag} final T", a1[:, 1], a0[:, 1],
+                                FINAL_T_ATOL))
+        check_equal(f"B1 {tag} saturation depth", a1[:, 2:], a0[:, 2:])
 
-        g_color = torch.tensor(rng.normal(size=c0.shape).astype(np.float32),
-                               device=c0.device)
-        g_color[:, nfeat:] = 0.0
-        g_aux = torch.tensor(rng.normal(size=a0.shape).astype(np.float32),
-                             device=a0.device)
-        g_aux[:, 2:] = 0.0
-        if not carry:
-            g_aux[:, 0] = 0.0
+        g_color, g_aux = cotangents(c0, a0, nfeat, carry, rng)
         g1 = raster.raster_bwd_cuda(*s.args, c1, a1, g_color, g_aux, nfeat, carry)
         torch.cuda.synchronize()
         g0 = raster.raster_bwd_plain(*s.args, c0, a0, g_color, g_aux, nfeat, carry)
-        scale = g0.abs().max().item()
-        e_bwd = (g1 - g0).abs().max().item()
-        if e_bwd > GRAD_TOL * max(scale, 1e-30) and e_bwd > 0:
-            fail(f"B2 {name} carry_depth={carry}: max err {e_bwd:.3g} "
-                 f"against scale {scale:.3g}")
+        e_bwd, scale = check_grad(f"B2 {tag}", g1, g0)
         errs["B1"] = max(errs["B1"], e_fwd)
         errs["B2"] = max(errs["B2"], e_bwd)
         saturated = int((a0[:, 2, 0] < raster.SAT_INF).sum())
@@ -270,6 +290,138 @@ def compare_kernels(name, s: Setup, rng, errs):
             f"B1_err={e_fwd:.3g} B2_err={e_bwd:.3g} B2_err/scale="
             f"{e_bwd / max(scale, 1e-30):.3g}")
         out[carry] = (c0, a0, evaluated)
+    return out
+
+
+def max_err(got, ref):
+    return (got - ref).abs().max().item() if ref.numel() else 0.0
+
+
+def check_close(label, got, ref, atol, rtol=FWD_RTOL):
+    import torch
+
+    if got.shape != ref.shape or not torch.allclose(got, ref, atol=atol,
+                                                    rtol=rtol):
+        fail(f"{label}: max err {max_err(got, ref):.3g}")
+    return max_err(got, ref)
+
+
+def check_equal(label, got, ref):
+    import torch
+
+    if not torch.equal(got, ref):
+        fail(f"{label}: differs (max err {max_err(got, ref):.3g})")
+
+
+def check_grad(label, got, ref):
+    """Max abs error within GRAD_TOL of the reference's largest magnitude."""
+    scale = ref.abs().max().item() if ref.numel() else 0.0
+    err = max_err(got, ref)
+    if err > GRAD_TOL * max(scale, 1e-30) and err > 0:
+        fail(f"{label}: max err {err:.3g} against scale {scale:.3g}")
+    return err, scale
+
+
+def cotangents(color, aux, nfeat, carry, rng):
+    """Random dL/dcolor on the first ``nfeat`` channels and dL/d(median
+    depth, final T); none on median depth when ``carry`` is off."""
+    import torch
+
+    g_color = torch.tensor(rng.normal(size=color.shape).astype(np.float32),
+                           device=color.device)
+    g_color[:, nfeat:] = 0.0
+    g_aux = torch.tensor(rng.normal(size=aux.shape).astype(np.float32),
+                         device=aux.device)
+    g_aux[:, 2:] = 0.0
+    if not carry:
+        g_aux[:, 0] = 0.0
+    return g_color, g_aux
+
+
+def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
+    """B3a-d each against its plain version, fed the plain version's inputs
+    (carries included); then the composed split render and its gradients
+    (kernels all the way) against B1/B2 on the same scene."""
+    import torch
+
+    from splatam_torch.render import raster
+
+    b, gx = sp.binned, sp.grid_x
+    out = {}
+    for carry, nfeat in ((True, sp.nfeat), (False, min(sp.nfeat, 4))):
+        tag = f"{name} carry_depth={carry}"
+        c1, a1, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx, CHUNK,
+                                                      carry)
+        torch.cuda.synchronize()
+        c0, a0, k0, ev_i = raster.raster_split_int_fwd_plain(
+            sp.attrs, b, gx, CHUNK, carry)
+        e3a = max(check_close(f"B3a {tag} color", c1, c0, FWD_ATOL),
+                  check_close(f"B3a {tag} median depth", a1[:, 0], a0[:, 0],
+                              FWD_ATOL),
+                  check_close(f"B3a {tag} T", a1[:, 1], a0[:, 1], FINAL_T_ATOL),
+                  check_close(f"B3a {tag} carry T, depth", k1[:, :2],
+                              k0[:, :2], FINAL_T_ATOL))
+        check_equal(f"B3a {tag} saturation depth", a1[:, 2:], a0[:, 2:])
+        check_equal(f"B3a {tag} carry death", k1[:, 0] < 0, k0[:, 0] < 0)
+        check_equal(f"B3a {tag} carry candidate", k1[:, 2], k0[:, 2])
+
+        cp1, ap1 = raster.raster_split_tail_fwd_cuda(sp.attrs, b, k0, gx,
+                                                     CHUNK, carry)
+        torch.cuda.synchronize()
+        cp0, ap0, ev_t = raster.raster_split_tail_fwd_plain(
+            sp.attrs, b, k0, gx, CHUNK, carry)
+        e3b = max(check_close(f"B3b {tag} color", cp1, cp0, FWD_ATOL),
+                  check_close(f"B3b {tag} median depth", ap1[:, :, 0],
+                              ap0[:, :, 0], FWD_ATOL),
+                  check_close(f"B3b {tag} T", ap1[:, :, 1], ap0[:, :, 1],
+                              FINAL_T_ATOL))
+        check_equal(f"B3b {tag} saturation depth", ap1[:, :, 2:],
+                    ap0[:, :, 2:])
+
+        color, aux = raster.compose_split(b, c0, a0, cp0, ap0)
+        g_color, g_aux = cotangents(color, aux, nfeat, carry, rng)
+        bwd_args = (gx, CHUNK, color, aux, g_color, g_aux, nfeat, carry)
+        g1, bc1 = raster.raster_split_int_bwd_cuda(sp.attrs, b, *bwd_args)
+        torch.cuda.synchronize()
+        g0, bc0 = raster.raster_split_int_bwd_plain(sp.attrs, b, *bwd_args)
+        e3c, s3c = check_grad(f"B3c {tag}", g1, g0)
+        check_close(f"B3c {tag} carry T", bc1[:, 0], bc0[:, 0], FINAL_T_ATOL)
+        check_grad(f"B3c {tag} carry prefix", bc1[:, 1], bc0[:, 1])
+        check_equal(f"B3c {tag} carry death", bc1[:, 0] < 0, bc0[:, 0] < 0)
+        gt1 = raster.raster_split_tail_bwd_cuda(sp.attrs, b, bc0, *bwd_args)
+        torch.cuda.synchronize()
+        gt0 = raster.raster_split_tail_bwd_plain(sp.attrs, b, bc0, *bwd_args)
+        e3d, s3d = check_grad(f"B3d {tag}", gt1, gt0)
+
+        # the split path on the card against the aligned kernels
+        ca, aa = raster.raster_fwd_cuda(*al.args, carry)
+        cs, as_ = raster.compose_split(
+            b, c1, a1, *raster.raster_split_tail_fwd_cuda(sp.attrs, b, k1, gx,
+                                                          CHUNK, carry))
+        e_sa = max(check_close(f"split vs aligned {tag} color", cs, ca,
+                               FWD_ATOL),
+                   check_close(f"split vs aligned {tag} median depth",
+                               as_[:, 0], aa[:, 0], FWD_ATOL),
+                   check_close(f"split vs aligned {tag} T", as_[:, 1],
+                               aa[:, 1], 1e-6, 0.0))
+        check_equal(f"split vs aligned {tag} saturation depth", as_[:, 2:],
+                    aa[:, 2:])
+        ga = raster.raster_bwd_cuda(*al.args, ca, aa, g_color, g_aux, nfeat,
+                                    carry)
+        sargs = (gx, CHUNK, cs, as_, g_color, g_aux, nfeat, carry)
+        gs, bcs = raster.raster_split_int_bwd_cuda(sp.attrs, b, *sargs)
+        gs = raster.raster_split_tail_bwd_cuda(sp.attrs, b, bcs, *sargs,
+                                               grad=gs)
+        torch.cuda.synchronize()
+        e_gsa, s_gsa = check_grad(f"split vs aligned {tag} gradients", gs, ga)
+        for k, e in (("B3a", e3a), ("B3b", e3b), ("B3c", e3c), ("B3d", e3d)):
+            errs[k] = max(errs[k], e)
+        log(f"[split] {name:12s} carry_depth={carry!s:5s} nfeat={nfeat} "
+            f"NCi={b.chunk_meta.shape[0]} NCt={b.tmeta.shape[0]} "
+            f"B3a={e3a:.3g} B3b={e3b:.3g} B3c={e3c:.3g}/{s3c:.3g} "
+            f"B3d={e3d:.3g}/{s3d:.3g}; vs aligned fwd {e_sa:.3g} grad "
+            f"{e_gsa:.3g}/{s_gsa:.3g}")
+        out[carry] = dict(k0=k0, ev_i=ev_i, ev_t=ev_t, color=color, aux=aux)
     return out
 
 
@@ -298,13 +450,20 @@ def check_goldens(name, scene, dev):
 
 def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     rng = np.random.default_rng(0)
-    errs = {"B1": 0.0, "B2": 0.0}
+    errs = {k: 0.0 for k in ("B1", "B2", "B3a", "B3b", "B3c", "B3d")}
     for name, scene in golden_scenes().items():
         check_goldens(name, scene, dev)
-        compare_kernels(name, scene_setup(scene, dev), rng, errs)
+        al = scene_setup(scene, dev)
+        compare_kernels(name, al, rng, errs)
+        compare_split_kernels(name, scene_setup(scene, dev, layout="split"),
+                              al, rng, errs)
     log("[kernels] golden renders match tests/goldens")
-    for kind in ("saturating", "empty"):
-        compare_kernels(kind, scene_setup(small_scene(kind), dev), rng, errs)
+    for kind in ("saturating", "empty", "interior_only"):
+        al = scene_setup(small_scene(kind), dev)
+        compare_kernels(kind, al, rng, errs)
+        compare_split_kernels(kind, scene_setup(small_scene(kind), dev,
+                                                layout="split"),
+                              al, rng, errs)
     # the 200k scene as the mapping loss renders it: isotropic scales,
     # sigmoid opacities, 6 fused channels
     p, w, h, k = bench_params(*bench_size)
@@ -316,7 +475,17 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     )
     bench = scene_setup(scene, dev, mapping_feats=True)
     outs = compare_kernels("bench_200k", bench, rng, errs)
-    return errs, bench, outs
+    bench_split = scene_setup(scene, dev, mapping_feats=True, layout="split")
+    outs_split = compare_split_kernels("bench_200k", bench_split, bench, rng,
+                                       errs)
+    return errs, (bench, outs), (bench_split, outs_split)
+
+
+def bound_ms(nbytes, ops):
+    """The least time on this card (ms) for moving ``nbytes`` and doing
+    ``ops`` f32 operations, and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_S, ops / F32_PEAK_FLOPS
+    return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
 
 
 def kernel_bounds(s: Setup, evaluated, nfeat_bwd):
@@ -329,20 +498,50 @@ def kernel_bounds(s: Setup, evaluated, nfeat_bwd):
     fwd_bytes, bwd_bytes = common + 2 * block, common + 4 * block + n * 16 * 4
     fwd_ops = pairs * (FWD_OPS[0] + FWD_OPS[1] * s.nfeat)
     bwd_ops = pairs * (BWD_OPS[0] + BWD_OPS[1] * nfeat_bwd)
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_S, ops / F32_PEAK_FLOPS
-        return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
-
-    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops), pairs
+    return bound_ms(fwd_bytes, fwd_ops), bound_ms(bwd_bytes, bwd_ops), pairs
 
 
-def phase_timing(bench: Setup, outs, dev):
-    """B1/B2 times on the 200k scene in the mapping loss's setting."""
+def split_bounds(s: Setup, ev_i, ev_t, nfeat_bwd):
+    """B3a-d least times in ms on this card for this run's inputs: each
+    kernel's own stream region, tables, carries and the blocks of the
+    tiles it owns, read once, and its outputs written once."""
+    b = s.binned
+    n, t = s.attrs.shape[0], b.int_ranges.shape[0]
+    nci, nct = b.chunk_meta.shape[0], b.tmeta.shape[0]
+    tail = b.mask_a | b.mask_b
+    carried = int((tail & b.mask_int).sum())  # tail tiles that read a carry
+    row = 256 * 4  # one f32 row of a tile
+    block = 8 * row  # one (8, 256) f32 tile block
+    attrs = n * 16 * 4  # the attribute table in, or the gradient table out
+    gid_i, gid_t = nci * CHUNK * 4, nct * CHUNK * 4
+    ranges, tables = t * 2 * 4, 3 * nct * 4
+    pairs_i, pairs_t = int(ev_i.sum()), int(ev_t.sum())
+    fwd = FWD_OPS[0] + FWD_OPS[1] * s.nfeat
+    bwd = BWD_OPS[0] + BWD_OPS[1] * nfeat_bwd
+    return {
+        # color and aux out, carry (3 rows) out
+        "B3a": bound_ms(attrs + gid_i + ranges + t * (2 * block + 3 * row),
+                        pairs_i * fwd),
+        # carries in, color and aux pair blocks out
+        "B3b": bound_ms(attrs + gid_t + tables + carried * 3 * row
+                        + nct * 2 * 2 * block, pairs_t * fwd),
+        # color, aux and both cotangents in, gradients and carry out
+        "B3c": bound_ms(attrs + gid_i + ranges + t * (4 * block + 2 * row)
+                        + attrs, pairs_i * bwd),
+        # carries and the tail tiles' four blocks in, gradients out
+        "B3d": bound_ms(attrs + gid_t + tables + carried * 2 * row
+                        + int(tail.sum()) * 4 * block + attrs, pairs_t * bwd),
+    }, pairs_i + pairs_t
+
+
+def phase_timing(aligned, split, dev):
+    """Every kernel's time on the 200k scene in the mapping loss's setting
+    (4 gradient channels, no median depth)."""
     import torch
 
     from splatam_torch.render import raster
 
+    bench, outs = aligned
     carry, nfeat = False, 4
     c0, a0, evaluated = outs[carry]
     rng = np.random.default_rng(1)
@@ -363,19 +562,51 @@ def phase_timing(bench: Setup, outs, dev):
     }
     (b1, b1_by), (b2, b2_by), pairs = kernel_bounds(bench, evaluated, nfeat)
     bounds = {"B1": (b1, b1_by), "B2": (b2, b2_by)}
-    for kname in ("B1", "B2"):
+
+    sp, souts = split
+    o = souts[carry]
+    sb, gx = sp.binned, sp.grid_x
+    bargs = (gx, CHUNK, o["color"], o["aux"], g_color, g_aux, nfeat, carry)
+    _, bcarry = raster.raster_split_int_bwd_cuda(sp.attrs, sb, *bargs)
+    runs = {
+        "B3a": (lambda: raster.raster_split_int_fwd_cuda(
+                    sp.attrs, sb, gx, CHUNK, carry),
+                lambda: raster.raster_split_int_fwd_plain(
+                    sp.attrs, sb, gx, CHUNK, carry)),
+        "B3b": (lambda: raster.raster_split_tail_fwd_cuda(
+                    sp.attrs, sb, o["k0"], gx, CHUNK, carry),
+                lambda: raster.raster_split_tail_fwd_plain(
+                    sp.attrs, sb, o["k0"], gx, CHUNK, carry)),
+        "B3c": (lambda: raster.raster_split_int_bwd_cuda(sp.attrs, sb, *bargs),
+                lambda: raster.raster_split_int_bwd_plain(sp.attrs, sb, *bargs)),
+        "B3d": (lambda: raster.raster_split_tail_bwd_cuda(
+                    sp.attrs, sb, bcarry, *bargs),
+                lambda: raster.raster_split_tail_bwd_plain(
+                    sp.attrs, sb, bcarry, *bargs)),
+    }
+    for k, (kernel, plain) in runs.items():
+        times[k] = (cuda_ms(kernel, 20), cuda_ms(plain, 2, warmup=0))
+    sbounds, spairs = split_bounds(sp, o["ev_i"], o["ev_t"], nfeat)
+    bounds.update(sbounds)
+    log(f"[timing] 200k scene: K={bench.binned.num_instances} instances; "
+        f"aligned {pairs} (pixel, instance) pairs evaluated, split {spairs} "
+        f"(NCi={sb.chunk_meta.shape[0]} interior, NCt={sb.tmeta.shape[0]} "
+        f"tail chunks of {CHUNK})")
+    for kname in times:
         ms, plain = times[kname]
         log(f"[timing] {kname}: {ms:.4f} ms kernel, {plain:.2f} ms plain, "
-            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), "
-            f"K={bench.binned.num_instances} instances, {pairs} (pixel, "
-            f"instance) pairs evaluated")
+            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+    split_ms = sum(times[k][0] for k in ("B3a", "B3b", "B3c", "B3d"))
+    log(f"[timing] split forward + backward {split_ms:.4f} ms against "
+        f"aligned {times['B1'][0] + times['B2'][0]:.4f} ms")
     return times, bounds
 
 
-def phase_iteration(dev, iters=10, bench_size=(200_000, 1200, 680)):
+def phase_iteration(dev, layout, iters=10, bench_size=(200_000, 1200, 680)):
     """One mapping iteration (render + loss + backward + Adam) on the 200k
-    scene, binning frozen for ``iters`` iterations and capped at the
-    previous render's saturation depth (bench.py's loop)."""
+    scene in the stream ``layout``, binning frozen for ``iters`` iterations
+    and capped at the previous render's saturation depth (bench.py's
+    loop)."""
     import torch
 
     from splatam_torch.core.losses import compute_binned
@@ -386,7 +617,7 @@ def phase_iteration(dev, iters=10, bench_size=(200_000, 1200, 680)):
     params_np, w, h, k = bench_params(*bench_size)
     params = {key: torch.as_tensor(v, device=dev) for key, v in params_np.items()}
     cam = setup_camera(w, h, k, np.eye(4), device=dev)
-    cfg = RasterConfig(chunk=CHUNK)
+    cfg = RasterConfig(chunk=CHUNK, layout=layout)
     rot = torch.tensor([1.0, 0, 0, 0], device=dev)
     tran = torch.zeros(3, device=dev)
     gt_im = torch.zeros((3, h, w), device=dev)
@@ -413,7 +644,7 @@ def phase_iteration(dev, iters=10, bench_size=(200_000, 1200, 680)):
     if not all(bool(torch.isfinite(v)) for v in res.losses.values()):
         fail("mapping iteration on the 200k scene gave a non-finite loss")
     mpix_s = w * h / (ms * 1e-3) / 1e6
-    log(f"[iteration] 200k gaussians at {w}x{h}: {ms:.3f} ms per forward + "
+    log(f"[iteration] {layout}: 200k gaussians at {w}x{h}: {ms:.3f} ms per forward + "
         f"backward + Adam iteration (binning frozen for {iters}), "
         f"{mpix_s:.2f} Mpix/s; library_ms none (no single PyTorch call "
         f"computes this function)")
@@ -443,18 +674,56 @@ def profile_block(block, iters, top=12):
     if not rows:
         log("[profile] the profiler saw no device time")
         return
+    kern_ms = sum(r[1] for r in rows if r[0].startswith(("raster_", "split_")))
     log(f"[profile] {iters} iterations: wall {wall_ms:.2f} ms under the "
         f"profiler, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
-        f"{sum(r[2] for r in rows)} device ops")
+        f"{sum(r[2] for r in rows)} device ops; the compositing kernels "
+        f"{kern_ms / iters:.4f} ms/iter ({kern_ms / busy_ms:.1%} of the "
+        f"device time)")
     for key, dev_ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[profile]   {dev_ms / iters:8.4f} ms/iter  {dev_ms / busy_ms:6.1%}  "
             f"x{count / iters:g}/iter  {key[:90]}")
 
 
-def phase_slam(frames, device, width=1200, height=680, track=40, map_=60):
-    """The main path through the CLI's entry points, at Replica width,
-    with Replica's iterations (tracking 40, mapping 60, window 24)."""
+KERNEL_NAMES = ("B1", "B2", "B3a", "B3b", "B3c", "B3d")
+
+
+def reset_launches():
     from splatam_torch.render import raster
+
+    for k in KERNEL_NAMES:
+        raster.KERNELS[k].launches = 0
+
+
+def read_launches():
+    from splatam_torch.render import raster
+
+    return {k: raster.KERNELS[k].launches for k in KERNEL_NAMES}
+
+
+def expected_launches(layout, renders, iters):
+    """Launches of ``renders`` renders (``iters`` of them differentiated)
+    in the stream ``layout``."""
+    fwd, bwd = (("B1",), ("B2",)) if layout == "aligned" else (
+        ("B3a", "B3b"), ("B3c", "B3d"))
+    out = {k: 0 for k in KERNEL_NAMES}
+    for k in fwd:
+        out[k] += renders
+    for k in bwd:
+        out[k] += iters
+    return out
+
+
+def check_launches(phase, launches, expect):
+    log(f"[{phase}] launches {json.dumps(launches)}")
+    if launches != expect:
+        fail(f"{phase}: launch counts {launches} do not match the run: "
+             f"expected {expect}")
+
+
+def phase_slam(frames, device, width=1200, height=680, track=40, map_=60):
+    """The SLAM path through the CLI's entry points, at Replica width,
+    with Replica's iterations (tracking 40, mapping 60, window 24)."""
     from splatam_torch.run import synthetic_slam
 
     args = synthetic_slam.parse_args([
@@ -462,30 +731,30 @@ def phase_slam(frames, device, width=1200, height=680, track=40, map_=60):
         str(frames), "--track_iters", str(track), "--map_iters", str(map_),
         "--window", "24", "--device", str(device),
     ])
-    raster.FWD_KERNEL.launches = 0
-    raster.BWD_KERNEL.launches = 0
+    reset_launches()
     result, state = synthetic_slam.run(args)
-    launches = {"B1": raster.FWD_KERNEL.launches,
-                "B2": raster.BWD_KERNEL.launches}
+    launches = read_launches()
     log(f"[slam] {json.dumps(result)}")
     c = state.counts
     iters = c["tracking_iters"] + c["mapping_iters"]
-    # every iteration renders once and backpropagates once; B1 also renders
-    # each dataset frame, each densification check and each evaluated frame
-    expect_b1 = iters + c["densify_renders"] + 2 * frames
+    # every iteration renders once and backpropagates once, in the layout
+    # frame 0 resolved; so does each densification check. The dataset's
+    # ground-truth renders are aligned, the evaluation renders split.
+    expect = expected_launches(state.layout, iters + c["densify_renders"],
+                               iters)
+    for k, v in expected_launches("aligned", frames, 0).items():
+        expect[k] += v
+    for k, v in expected_launches("split", frames, 0).items():
+        expect[k] += v
     tm = state.timing
-    log(f"[slam] mean ms per iteration: tracking "
+    log(f"[slam] layout {state.layout}; mean ms per iteration: tracking "
         f"{1e3 * np.mean(tm['tracking_iter']):.2f}, mapping "
         f"{1e3 * np.mean(tm['mapping_iter']):.2f}; last frame: tracking "
         f"{tm['tracking_frame'][-1]:.2f} s, mapping {tm['mapping_frame'][-1]:.2f} s")
-    log(f"[slam] launches B1={launches['B1']} B2={launches['B2']}; iterations "
-        f"tracking={c['tracking_iters']} mapping={c['mapping_iters']}, "
-        f"densify renders={c['densify_renders']}, frames={frames}")
-    if launches["B2"] == 0 or launches["B1"] == 0:
-        fail("the main path launched no kernel")
-    if launches["B2"] != iters or launches["B1"] != expect_b1:
-        fail(f"launch counts {launches} do not match the run: expected "
-             f"B2={iters}, B1={expect_b1}")
+    log(f"[slam] iterations tracking={c['tracking_iters']} "
+        f"mapping={c['mapping_iters']}, densify renders="
+        f"{c['densify_renders']}, frames={frames}")
+    check_launches("slam", launches, expect)
     if (c["tracking_iters"] != track * (frames - 1)
             or c["mapping_iters"] != map_ * frames):
         fail(f"iterations run {c} are not {track}/{map_} per frame")
@@ -499,53 +768,231 @@ def phase_slam(frames, device, width=1200, height=680, track=40, map_=60):
         fail(f"SLAM quality out of bounds: {result}")
     if any(state.nonfinite.values()):
         fail(f"non-finite iterations: {state.nonfinite}")
-    return result, launches
+    return result, launches, state
 
 
-def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None):
-    """Phases 2-4 on ``dev``. Returns (the kernels' JSON entries, a
+def load_config(name):
+    from splatam_torch.run.common import load_experiment_config
+
+    return load_experiment_config(os.path.join(ROOT, "configs", "replica", name))
+
+
+def cut(config, path, value):
+    """Set config[path...] = value and print the cut."""
+    *head, last = path
+    d = config
+    for key in head:
+        d = d[key]
+    log(f"[cut] {'.'.join(path)}: {d.get(last)} -> {value}")
+    d[last] = value
+
+
+def frame_metrics(state, seq, frames, cfg, phase, tag):
+    """Per-frame PSNR and depth L1 of ``state``'s map at its poses; prints
+    them with the gaussian count. Returns the mean PSNR and depth L1."""
+    from splatam_torch.core.params import num_gaussians
+    from splatam_torch.run.synthetic_slam import evaluate
+
+    psnr, depth_l1 = evaluate(state, seq, frames, cfg)
+    log(f"[{phase}] {tag}: {num_gaussians(state.params)} gaussians; PSNR "
+        + " ".join(f"{v:.2f}" for v in psnr) + " dB; depth L1 "
+        + " ".join(f"{v:.4f}" for v in depth_l1) + " m")
+    return float(np.mean(psnr)), float(np.mean(depth_l1))
+
+
+def synthetic_frames(frames, dev, width=1200, height=680):
+    """The synthetic sequence's frames, rendered (aligned, B1) up front."""
+    from splatam_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=frames, width=width, height=height,
+                          seed=0, device=dev)
+    return [ds[t] for t in range(frames)]
+
+
+def phase_offline(dev, frames=10, iters=500, size=(1200, 680)):
+    """Offline 3DGS training through ``offline_splatting`` with the Replica
+    config as it is, but for the cuts printed."""
+    import torch
+
+    from splatam_torch.gs.offline import offline_splatting
+    from splatam_torch.render.binning import RasterConfig
+
+    config = load_config("gaussian_splatting.py")
+    cut(config, ("data", "num_frames"), frames)
+    cut(config, ("train", "num_iters_mapping"), iters)
+    for key, value in (("start_after", iters // 5), ("densify_every", iters // 5),
+                       ("stop_after", 4 * iters // 5),
+                       ("remove_big_after", 3 * iters // 5)):
+        cut(config, ("train", "densify_dict", key), value)
+    seq = synthetic_frames(frames, dev, *size)
+    cfg = RasterConfig(**config["raster"])
+    # the map before the iterations: the same deterministic per-frame phase,
+    # run once more without iterations, outside the counted run
+    config0 = copy.deepcopy(config)
+    config0["train"]["num_iters_mapping"] = 0
+    p0, d0 = frame_metrics(offline_splatting(config0, seq, progress=False,
+                                             device=dev),
+                           seq, frames, cfg, "offline", "before the iterations")
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.time()
+    state = offline_splatting(config, seq, progress=False, device=dev)
+    wall = time.time() - t0
+    p1, d1 = frame_metrics(state, seq, frames, cfg, "offline", "after")
+    launches = read_launches()
+    expect = expected_launches(
+        cfg.layout, iters + state.counts["densify_renders"] + frames, iters)
+    log(f"[offline] layout {cfg.layout}; {iters} iterations at "
+        f"{1e3 * state.timing['offline_iter'][0]:.2f} ms each; "
+        f"{state.counts['densify_renders']} densification renders; "
+        f"{wall:.1f} s in offline_splatting")
+    check_launches("offline", launches, expect)
+    log(f"[offline] mean PSNR {p0:.2f} -> {p1:.2f} dB, depth L1 {d0:.4f} -> "
+        f"{d1:.4f} m")
+    if not (math.isfinite(p1) and p1 > p0 and p1 > 20.0 and d1 < 0.05):
+        fail("offline training out of bounds: PSNR must rise and end above "
+             "20 dB, depth L1 below 0.05 m")
+    if dev.type == "cuda":
+        profile_block(train_steps(state, seq, cfg, config), 10)
+    return dict(psnr_before=p0, psnr=p1, depth_l1=d1,
+                ms_per_iter=1e3 * state.timing["offline_iter"][0]), launches
+
+
+def train_steps(state, seq, cfg, config, iters=10):
+    """A block of ``iters`` more offline-training iterations on ``state``'s
+    map, for the profiler (a fresh Adam state, frames in turn)."""
+    from splatam_torch.core.optim import init_adam
+    from splatam_torch.core.params import GAUSSIAN_KEYS, get_pose
+    from splatam_torch.gs.offline import gs_step
+    from splatam_torch.slam.pipeline import as_frame
+
+    frames = [as_frame(c, d, state.cam.device) for c, d, _, _ in seq]
+    lrs = config["train"]["lrs_mapping"]
+
+    def block():
+        opt = init_adam({k: state.params[k] for k in GAUSSIAN_KEYS})
+        for it in range(iters):
+            t = it % len(frames)
+            gs_step(state.params, opt, *get_pose(state.params, t), *frames[t],
+                    state.cam, cfg, lrs)
+
+    return block
+
+
+def phase_post_opt(dev, slam_state, frames, iters=300, size=(1200, 680)):
+    """Post-SLAM refinement: the SLAM map through ``save_params`` and
+    ``post_splatam_opt`` with the Replica config, cut as printed."""
+    import torch
+
+    from splatam_torch.gs.post_opt import post_splatam_opt
+    from splatam_torch.render.binning import RasterConfig
+    from splatam_torch.slam.pipeline import SlamState
+    from splatam_torch.utils.checkpoint import params_from_checkpoint, save_params
+
+    path = save_params(
+        slam_state.params, slam_state.variables,
+        os.path.join(ROOT, "build", "smoke"), intrinsics=slam_state.intrinsics,
+        first_w2c=slam_state.first_w2c,
+        gt_w2c_all_frames=slam_state.gt_w2c_all,
+    )
+    ckpt = dict(np.load(path))
+    config = load_config("post_splatam_opt.py")
+    cut(config, ("data", "num_frames"), frames)
+    cut(config, ("train", "num_iters_mapping"), iters)
+    seq = synthetic_frames(frames, dev, *size)
+    cfg = RasterConfig(**config["raster"])
+    loaded = SlamState()
+    loaded.params, loaded.variables = params_from_checkpoint(ckpt, dev)
+    loaded.cam = slam_state.cam
+    p0, d0 = frame_metrics(loaded, seq, frames, cfg, "post_opt", "loaded map")
+    del loaded
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.time()
+    state = post_splatam_opt(config, seq, ckpt, progress=False, device=dev)
+    wall = time.time() - t0
+    launches = read_launches()
+    p1, d1 = frame_metrics(state, seq, frames, cfg, "post_opt", "refined")
+    check_launches("post_opt", launches,
+                   expected_launches(cfg.layout, iters, iters))
+    log(f"[post_opt] {iters} iterations at "
+        f"{1e3 * state.timing['offline_iter'][0]:.2f} ms each, {wall:.1f} s; "
+        f"PSNR {p0:.2f} -> {p1:.2f} dB, depth L1 {d0:.4f} -> {d1:.4f} m")
+    if not (math.isfinite(p1) and p1 >= p0 - 0.5):
+        fail("refinement lost more than 0.5 dB of PSNR")
+    if dev.type == "cuda":
+        profile_block(train_steps(state, seq, cfg, config), 10)
+    return dict(psnr_loaded=p0, psnr=p1,
+                ms_per_iter=1e3 * state.timing["offline_iter"][0]), launches
+
+
+SOURCES = {
+    "B1": ("raster_fwd", "raster_fwd.cu", 567),
+    "B2": ("raster_bwd", "raster_bwd.cu", 962),
+    "B3a": ("raster_split_int_fwd", "raster_split_fwd.cu", 1590),
+    "B3b": ("raster_split_tail_fwd", "raster_split_fwd.cu", 1036),
+    "B3c": ("raster_split_int_bwd", "raster_split_bwd.cu", 990),
+    "B3d": ("raster_split_tail_bwd", "raster_split_bwd.cu", 1196),
+}
+
+
+def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
+          offline=None, post=None):
+    """Phases 2-6 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
 
     t = time.time()
-    errs, bench, outs = phase_kernels(dev, bench_size)
+    errs, aligned, split = phase_kernels(dev, bench_size)
     log(f"[kernels] all comparisons within tolerance ({time.time() - t:.1f} s)")
     t = time.time()
-    times, bounds = phase_timing(bench, outs, dev)
-    del bench, outs
+    times, bounds = phase_timing(aligned, split, dev)
+    del aligned, split
     torch.cuda.empty_cache()
-    it_ms, mpix_s = phase_iteration(dev, bench_size=bench_size)
+    iteration = {layout: phase_iteration(dev, layout, bench_size=bench_size)
+                 for layout in ("aligned", "split")}
     log(f"[timing] done ({time.time() - t:.1f} s)")
     t = time.time()
-    slam, launches = phase_slam(frames, dev, **(slam_size or {}))
+    slam, launches, slam_state = phase_slam(frames, dev, **(slam_size or {}))
     log(f"[slam] {frames} frames in {time.time() - t:.1f} s")
+    t = time.time()
+    off, off_launches = phase_offline(dev, **(offline or {}))
+    log(f"[offline] phase in {time.time() - t:.1f} s")
+    t = time.time()
+    post_, post_launches = phase_post_opt(dev, slam_state, frames,
+                                          **(post or {}))
+    log(f"[post_opt] phase in {time.time() - t:.1f} s")
+    # the main paths' launches: SLAM, offline training and refinement
+    for k in KERNEL_NAMES:
+        launches[k] += off_launches[k] + post_launches[k]
 
-    replaces = {
-        "B1": "splatam_tpu/render/pallas_raster.py:567",
-        "B2": "splatam_tpu/render/pallas_raster.py:962",
-    }
-    sources = {
-        "B1": ("raster_fwd", "splatam_torch/render/csrc/raster_fwd.cu"),
-        "B2": ("raster_bwd", "splatam_torch/render/csrc/raster_bwd.cu"),
-    }
     kernels = [
         {
-            "name": sources[k][0], "route": "cuda", "source": sources[k][1],
-            "replaces": replaces[k], "launches": launches[k],
-            "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+            "name": SOURCES[k][0], "route": "cuda",
+            "source": f"splatam_torch/render/csrc/{SOURCES[k][1]}",
+            "replaces": f"splatam_tpu/render/pallas_raster.py:{SOURCES[k][2]}",
+            "launches": launches[k], "max_abs_err": errs[k],
+            "ms": times[k][0], "plain_ms": times[k][1],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": None,
         }
-        for k in ("B1", "B2")
+        for k in KERNEL_NAMES
     ]
-    summary = (f"iteration {it_ms:.3f} ms ({mpix_s:.2f} Mpix/s); "
-               f"SLAM {slam['s_per_frame']} s/frame")
+    summary = (
+        "iteration " + ", ".join(f"{lay} {ms:.3f} ms ({mp:.2f} Mpix/s)"
+                                 for lay, (ms, mp) in iteration.items())
+        + f"; SLAM {slam['s_per_frame']} s/frame; offline "
+        f"{off['ms_per_iter']:.2f} ms/iteration, PSNR {off['psnr']:.2f} dB; "
+        f"refinement {post_['ms_per_iter']:.2f} ms/iteration, PSNR "
+        f"{post_['psnr_loaded']:.2f} -> {post_['psnr']:.2f} dB")
     return kernels, summary
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--frames", type=int, default=100,
+    p.add_argument("--frames", type=int, default=60,
                    help="SLAM frames at 1200x680 (at least 3)")
     args = p.parse_args(argv)
     if args.frames < 3:

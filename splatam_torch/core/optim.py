@@ -69,11 +69,25 @@ def adam_step(
 
 
 def cat_state_zeros(state: AdamState, keys: Iterable[str], m: int) -> None:
-    """Moments of ``m`` appended rows start at zero (`zero_state_slots`,
-    cat_params_to_optimizer parity)."""
+    """The moments grow with the map: ``m`` appended rows start at zero
+    (cat_params_to_optimizer parity)."""
+    start = next(iter(state.mu.values())).shape[0]
     for k in keys:
         for d in (state.mu, state.nu):
-            d[k] = torch.cat([d[k], d[k].new_zeros((m,) + d[k].shape[1:])])
+            d[k] = torch.cat([d[k], d[k].new_empty((m,) + d[k].shape[1:])])
+    zero_state_slots(state, keys, start, start + m)
+
+
+def zero_state_slots(state: AdamState, keys: Iterable[str], start: int,
+                     stop: int) -> None:
+    """Zero the moments of rows [start, stop) for the given keys, in place
+    (``splatam_tpu/core/optim.py::zero_state_slots``; the JAX package pads
+    the range to its append quantum, which compact tensors do not need)."""
+    if stop <= start:
+        return
+    for k in keys:
+        state.mu[k][start:stop] = 0.0
+        state.nu[k][start:stop] = 0.0
 
 
 def prune_state(state: AdamState, keys: Iterable[str], keep: torch.Tensor) -> None:

@@ -53,7 +53,10 @@ def gaussian_values(
 
 
 def _tensor(x, dev) -> torch.Tensor:
-    # a copy: leaves may be read-only views (JAX arrays, npz members)
+    # a copy: leaves may be read-only views (JAX arrays, npz members), or
+    # tensors on any device
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, torch.float32, copy=True)
     return torch.as_tensor(np.array(x, np.float32), device=dev)
 
 
@@ -97,19 +100,22 @@ def num_gaussians(params: Params) -> int:
 def append_gaussians(
     params: Params,
     variables: Variables,
-    new_values: Dict[str, np.ndarray],
+    new_values: Dict[str, np.ndarray | torch.Tensor],
     time_idx: int,
 ) -> Tuple[Params, Variables]:
     """Concatenate new Gaussians (`scripts/splatam.py:417-426`): the 2D
-    statistics restart at zero for every Gaussian."""
+    statistics restart at zero for every Gaussian; the new ones get
+    ``time_idx`` as their timestep."""
     dev = params["means3D"].device
-    m = int(np.asarray(new_values["means3D"]).shape[0])
+    m = int(new_values["means3D"].shape[0])
     params = dict(params)
     for k in GAUSSIAN_KEYS:
         params[k] = torch.cat([params[k], _tensor(new_values[k], dev)])
     n = num_gaussians(params)
+    timestep = torch.cat([variables["timestep"],
+                          torch.full((m,), float(time_idx), device=dev)])
     variables = {k: torch.zeros(n, device=dev) for k in VARIABLE_KEYS}
-    variables["timestep"][n - m:] = float(time_idx)
+    variables["timestep"] = timestep
     return params, variables
 
 

@@ -92,7 +92,9 @@ class SyntheticDataset:
         inv0 = np.linalg.inv(self.poses[0])
         self.poses = [inv0 @ p for p in self.poses]
 
-        self._cfg = RasterConfig(chunk=64)
+        # stands in for the JAX dataset's backend="jnp" renders, which have
+        # no stream layout: any layout renders the same frames
+        self._cfg = RasterConfig(chunk=64, layout="aligned")
         self._cam0 = setup_camera(width, height, self.k, np.eye(4),
                                   device=self.device)
         self._cache = {}

@@ -39,22 +39,14 @@ raster_bwd_kernel(const float* __restrict__ attrs,
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
-  const int lane = p & 31;
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
   if (start >= end) return;
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
   const float py = (float)((tile / grid_x) * TILE + p / TILE);
 
-  const int64_t base = (int64_t)tile * NFEAT * NPIX + p;
-  float gcol[NFEAT];
-  float ga = __fmul_rn(g_aux[base + NPIX], aux[base + NPIX]);
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f) {
-    gcol[f] = g_color[base + f * NPIX];
-    ga = __fadd_rn(ga, __fmul_rn(color[base + f * NPIX], gcol[f]));
-  }
-  const float gdep = g_aux[base];
-
+  float gcol[NFEAT], ga, gdep;
+  grad_inputs(color, aux, g_color, g_aux, (int64_t)tile * NFEAT * NPIX + p,
+              gcol, ga, gdep);
   float T = 1.0f;
   bool dead = false;
   float accw = 0.0f;  // running prefix of w * gc
@@ -66,67 +58,9 @@ raster_bwd_kernel(const float* __restrict__ attrs,
     __syncthreads();
     for (int j = 0; j < n; ++j) {  // warp-uniform: shuffles need every lane
       float v[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) v[r] = 0.0f;
-      bool contrib = false;
-      if (!dead) {
-        const Pair q = eval_pair(s, j, chunk, px, py);
-        if (q.alpha > 0.0f) {
-          const float test = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
-          if (test < T_STOP) {
-            dead = true;
-          } else {
-            contrib = true;
-            float gc = 0.0f;
-#pragma unroll
-            for (int f = 0; f < NFEAT; ++f)
-              gc = __fadd_rn(gc, __fmul_rn(gcol[f],
-                                           s[(ROW_FEAT0 + f) * chunk + j]));
-            const float w = __fmul_rn(q.alpha, T);
-            accw = __fadd_rn(accw, __fmul_rn(w, gc));
-            const float suffix = __fsub_rn(ga, accw);
-            const float dalpha =
-                __fsub_rn(__fmul_rn(T, gc),
-                          __fdiv_rn(suffix, __fsub_rn(1.0f, q.alpha)));
-            const float dop =
-                q.raw < ALPHA_CAP ? __fmul_rn(dalpha, q.epow) : 0.0f;
-            const float dpower =
-                q.praw <= 0.0f ? __fmul_rn(dop, s[ROW_OP * chunk + j]) : 0.0f;
-            const float a = s[ROW_CA * chunk + j];
-            const float bb = s[ROW_CB * chunk + j];
-            const float c = s[ROW_CC * chunk + j];
-            v[ROW_X] = -__fmul_rn(dpower, __fadd_rn(__fmul_rn(a, q.dx),
-                                                    __fmul_rn(bb, q.dy)));
-            v[ROW_Y] = -__fmul_rn(dpower, __fadd_rn(__fmul_rn(c, q.dy),
-                                                    __fmul_rn(bb, q.dx)));
-            v[ROW_CA] = __fmul_rn(dpower, __fmul_rn(-0.5f,
-                                                    __fmul_rn(q.dx, q.dx)));
-            v[ROW_CB] = -__fmul_rn(dpower, __fmul_rn(q.dx, q.dy));
-            v[ROW_CC] = __fmul_rn(dpower, __fmul_rn(-0.5f,
-                                                    __fmul_rn(q.dy, q.dy)));
-            v[ROW_OP] = dop;
-            if (carry_depth && T > 0.5f && test < 0.5f) v[ROW_DEPTH] = gdep;
-#pragma unroll
-            for (int f = 0; f < NFEAT; ++f)
-              if (f < nfeat) v[ROW_FEAT0 + f] = __fmul_rn(w, gcol[f]);
-            T = test;
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[r] += __shfl_down_sync(0xffffffffu, v[r], off);
-        }
-        if (lane == 0) {
-          float* out = grad + (int64_t)s_gid[j] * ROWS;
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            if (v[r] != 0.0f) atomicAdd(out + r, v[r]);
-        }
-      }
+      const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
+                                    nfeat, carry_depth, T, dead, accw, v);
+      warp_add_rows(v, contrib, s_gid[j], grad);
     }
     if (__syncthreads_count(!dead) == 0) break;
   }

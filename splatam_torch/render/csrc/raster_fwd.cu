@@ -55,41 +55,13 @@ raster_fwd_kernel(const float* __restrict__ attrs,
     __syncthreads();  // the previous batch is no longer read
     stage_batch(s, nullptr, attrs, sorted_gid, b, n, chunk);
     __syncthreads();
-    if (!dead) {
-      for (int j = 0; j < n; ++j) {
-        const Pair q = eval_pair(s, j, chunk, px, py);
-        if (q.alpha == 0.0f) continue;  // T and the sums stay as they are
-        const float test = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
-        if (test < T_STOP) {
-          dead = true;
-          break;
-        }
-        const float w = __fmul_rn(q.alpha, T);
-#pragma unroll
-        for (int f = 0; f < NFEAT; ++f)
-          acc[f] = __fadd_rn(acc[f],
-                             __fmul_rn(w, s[(ROW_FEAT0 + f) * chunk + j]));
-        if (carry_depth && T > 0.5f && test < 0.5f)
-          dsum = __fadd_rn(dsum, s[ROW_DEPTH * chunk + j]);
-        T = test;
-      }
-    }
+    fwd_range(s, 0, n, chunk, px, py, carry_depth, T, dead, acc, dsum);
     if (__syncthreads_count(!dead) == 0) {
-      float m = -CUDART_INF_F;
-      for (int j = 0; j < n; ++j) m = fmaxf(m, s[ROW_DEPTH * chunk + j]);
-      sat = m;
+      sat = max_depth(s, 0, n, chunk);
       break;
     }
   }
-
-  const int64_t base = (int64_t)tile * NFEAT * NPIX + p;
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f) color[base + f * NPIX] = acc[f];
-  aux[base] = dsum;
-  aux[base + NPIX] = T;
-  aux[base + 2 * NPIX] = sat;
-#pragma unroll
-  for (int r = 3; r < 8; ++r) aux[base + r * NPIX] = 0.0f;
+  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
 }
 
 extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,

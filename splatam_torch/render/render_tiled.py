@@ -1,8 +1,10 @@
 """Tile-binned rendering: image and tile-block APIs around the kernels.
 
-Counterpart of ``splatam_tpu/render/render_tiled.py`` (its Pallas path with
-the aligned layout): preprocess -> binning -> compositing kernels, with the
-loss-facing outputs kept in channel-major tile blocks (T, C, 256).
+Counterpart of ``splatam_tpu/render/render_tiled.py`` (its Pallas path):
+preprocess -> binning -> compositing kernels, with the loss-facing outputs
+kept in channel-major tile blocks (T, C, 256). ``cfg.layout`` picks the
+stream layout and with it the kernels: ``"split"`` (the default) B3a-d,
+``"aligned"`` B1/B2.
 """
 from __future__ import annotations
 
@@ -12,7 +14,12 @@ import numpy as np
 import torch
 
 from splatam_torch.device import resolve_device
-from splatam_torch.render.binning import Binned, RasterConfig, bin_gaussians_csr
+from splatam_torch.render.binning import (
+    Binned,
+    BinnedSplit,
+    RasterConfig,
+    bin_gaussians_csr,
+)
 from splatam_torch.render.camera import Camera
 from splatam_torch.render.geometry import (
     MEDIAN_DEPTH_INIT,
@@ -84,13 +91,16 @@ def rasterize_tiled_blocks(
     cfg: RasterConfig = RasterConfig(),
     active: torch.Tensor | None = None,
     means2d_dummy: torch.Tensor | None = None,
-    binned: Binned | None = None,
+    binned: Binned | BinnedSplit | None = None,
     grad_feats: int | None = None,
     carry_depth_grad: bool = True,
 ) -> tuple[RasterOut, RenderAux, Projected]:
     """Render into raw channel-major tile blocks (no image).
 
-    ``binned`` reuses an earlier binning (frozen between rebins);
+    ``binned`` reuses an earlier binning (frozen between rebins), in either
+    layout; ``means2d_dummy`` (N, 2) is added to the screen means in NDC
+    units, so its gradient is the screen-space gradient Inria
+    densification reads;
     ``grad_feats`` / ``carry_depth_grad`` narrow the gradient rows, legal
     only when the caller's loss has zero cotangents for the dropped ones
     (``carry_depth_grad=False`` also zeroes the median-depth primal)."""
@@ -144,7 +154,7 @@ def rasterize_tiled(
     cfg: RasterConfig = RasterConfig(),
     active=None,
     means2d_dummy=None,
-    binned: Binned | None = None,
+    binned: Binned | BinnedSplit | None = None,
     device=None,
 ) -> tuple[RenderOutput, RenderAux]:
     """Render features (any F <= 8 channels; the first three blend against

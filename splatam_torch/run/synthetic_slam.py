@@ -88,7 +88,8 @@ def parse_args(argv=None):
 
 @torch.no_grad()
 def evaluate(state, ds, frames: int, cfg: RasterConfig):
-    """Mean PSNR and depth L1 over the sequence at the estimated poses."""
+    """Per-frame PSNR and depth L1 (lists) over the first ``frames`` frames
+    at the poses in ``state.params``, where the ground truth has depth."""
     gauss = {k: state.params[k] for k in GAUSSIAN_KEYS}
     dev = state.cam.device
     psnrs, depth_l1s = [], []
@@ -104,7 +105,7 @@ def evaluate(state, ds, frames: int, cfg: RasterConfig):
             ((out.color[3:4] - d_gt).abs() * valid).sum()
             / torch.clamp(valid.sum(), min=1)
         ))
-    return float(np.mean(psnrs)), float(np.mean(depth_l1s))
+    return psnrs, depth_l1s
 
 
 def run(args):
@@ -122,8 +123,8 @@ def run(args):
                               RasterConfig(**config["raster"]))
     result = {
         "ate_m": round(evaluate_ate(gt, est), 5),
-        "psnr": round(psnr, 2),
-        "depth_l1_m": round(depth_l1, 5),
+        "psnr": round(float(np.mean(psnr)), 2),
+        "depth_l1_m": round(float(np.mean(depth_l1)), 5),
         "gaussians": num_gaussians(state.params),
         "frames": args.frames,
         "wall_s": round(wall, 1),

@@ -4,18 +4,20 @@ Counterpart of ``splatam_tpu/slam/pipeline.py`` (`rgbd_slam`,
 `scripts/splatam.py:461-1010`) and of its config schema, so the same config
 dicts run in both. Not ported yet: checkpoint resume, wandb, separate
 tracking/densify resolutions, Inria densification, bundle adjustment and
-the depth-loss-threshold iteration doubling. Every raster ``layout`` runs the
-aligned kernels.
+the depth-loss-threshold iteration doubling. A config whose ``raster`` does
+not set ``layout`` gets it from frame 0's instance density
+(``resolve_auto_layout``), as in JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from splatam_torch.core.losses import compute_binned
+from splatam_torch.core.losses import compute_binned, count_instances
 from splatam_torch.core.params import (
     GAUSSIAN_KEYS,
     Params,
@@ -27,6 +29,7 @@ from splatam_torch.core.params import (
 from splatam_torch.core.transforms import matrix_to_quaternion, pose_to_w2c
 from splatam_torch.device import resolve_device
 from splatam_torch.render.binning import RasterConfig
+from splatam_torch.render.geometry import grid_dims
 from splatam_torch.slam.densify import add_new_gaussians
 from splatam_torch.slam.initialize import initialize_first_timestep
 from splatam_torch.slam.keyframes import keyframe_selection_overlap
@@ -51,6 +54,14 @@ def as_frame(color, depth, device):
     return im, d
 
 
+def resolve_auto_layout(total_instances: int, num_tiles: int,
+                        chunk: int) -> str:
+    """Density-adaptive stream layout (``splatam_tpu/slam/pipeline.py``):
+    split below 2 chunks of instances per tile, aligned above."""
+    dens = total_instances / max(num_tiles, 1)
+    return "split" if dens < 2 * chunk else "aligned"
+
+
 class SlamState:
     """Host-side SLAM state: map, keyframes, trajectory and telemetry."""
 
@@ -71,6 +82,7 @@ class SlamState:
         self.counts = {"tracking_iters": 0, "mapping_iters": 0,
                        "densify_renders": 0}
         self.nonfinite = {"tracking": 0, "mapping": 0}
+        self.layout = None  # the raster layout the run used
 
 
 def _sync(device: torch.device) -> None:
@@ -102,6 +114,19 @@ def rgbd_slam(config: Dict, dataset, progress: bool = True,
     )
     state.cam, state.intrinsics, state.first_w2c = cam, k3, first_w2c
     state.scene_radius = scene_radius
+    if "layout" not in config.get("raster", {}):
+        # JAX resolves it once per run from frame 0's (gaussian, tile) pairs
+        total0 = count_instances(
+            params, torch.tensor([1.0, 0, 0, 0], device=dev),
+            torch.zeros(3, device=dev), cam,
+        )
+        gx, gy = grid_dims(cam)
+        raster_cfg = dataclasses.replace(raster_cfg, layout=resolve_auto_layout(
+            total0, gx * gy, raster_cfg.chunk))
+        if progress:
+            print(f"[info] auto layout: {raster_cfg.layout} ({total0} "
+                  f"instances, {total0 / (gx * gy):.0f}/tile at frame 0)")
+    state.layout = raster_cfg.layout
     gauss_lrs = {k: v for k, v in cfg_map["lrs"].items() if k in GAUSSIAN_KEYS}
     nonfinite_track = torch.zeros((), dtype=torch.int32, device=dev)
     nonfinite_map = torch.zeros((), dtype=torch.int32, device=dev)

@@ -11,6 +11,10 @@ from splatam_torch.render.geometry import preprocess
 
 from tests.test_torch_geometry import NAMES, jax_scenes, torch_scene  # noqa: F401
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _both(s, depth_cap=None):
     """(JAX BinnedCSR, port Binned) for one scene."""
@@ -34,7 +38,8 @@ def _both(s, depth_cap=None):
     proj = preprocess(torch.tensor(a["means"]), torch.tensor(a["scales"]),
                       normalize(torch.tensor(a["quats"])), cam)
     tb = bin_gaussians_csr(
-        proj, cam, RasterConfig(chunk=128), opacities=torch.tensor(a["opac"]),
+        proj, cam, RasterConfig(chunk=128, layout="aligned"),
+        opacities=torch.tensor(a["opac"]),
         depth_cap=None if depth_cap is None else torch.tensor(depth_cap),
     )
     return jb, tb

@@ -8,6 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from splatam_torch.core.transforms import matrix_to_quaternion, normalize, quat_mult

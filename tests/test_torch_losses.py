@@ -11,6 +11,10 @@ from splatam_torch.core.params import GAUSSIAN_KEYS
 from splatam_torch.render.binning import RasterConfig
 from splatam_torch.render.camera import setup_camera
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _problem(seed=9, n=150, w=72, h=56):
     """A small scene (anisotropic, so rotation gradients are real) and a

@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "splatam_tpu")
 
@@ -21,6 +25,9 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import splatam_torch.run.synthetic_slam, splatam_torch.slam.pipeline\n"
+        "import splatam_torch.gs.offline, splatam_torch.gs.post_opt\n"
+        "import splatam_torch.utils.checkpoint, splatam_torch.utils.ply\n"
+        "import splatam_torch.eval.metrics, splatam_torch.run.common\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -50,7 +57,10 @@ def _entry_points():
     from splatam_torch.render.camera import setup_camera
     from splatam_torch.render.render_tiled import rasterize_tiled
     from splatam_torch.run import synthetic_slam
+    from splatam_torch.gs.offline import offline_splatting
+    from splatam_torch.gs.post_opt import post_splatam_opt
     from splatam_torch.slam.pipeline import rgbd_slam
+    from splatam_torch.utils.checkpoint import load_params
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -64,11 +74,16 @@ def _entry_points():
             ["--frames", "1", "--width", "16", "--height", "16"]
         ),
         "setup_camera": lambda: setup_camera(16, 16, np.eye(3), np.eye(4)),
+        "offline_splatting": lambda: offline_splatting({}, None),
+        "post_splatam_opt": lambda: post_splatam_opt(
+            {"data": {"num_frames": 1}}, None, {}),
+        "load_params": lambda: load_params("params.npz"),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["rasterize_tiled", "rgbd_slam", "synthetic_slam.main", "setup_camera"]
+    "name", ["rasterize_tiled", "rgbd_slam", "synthetic_slam.main", "setup_camera",
+             "offline_splatting", "post_splatam_opt", "load_params"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it

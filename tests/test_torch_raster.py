@@ -27,8 +27,12 @@ from splatam_torch.render.render_tiled import (
 
 from tests.test_torch_geometry import NAMES, jax_scenes, torch_scene  # noqa: F401
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-CFG = RasterConfig(chunk=128)
+CFG = RasterConfig(chunk=128, layout="aligned")  # B1/B2; split: test_torch_split
 
 
 def _jcfg():
@@ -171,7 +175,8 @@ def _attrs_and_bins(kind, chunk=128):
     cam = setup_camera(w, h, k, np.eye(4), device="cpu")
     proj = preprocess(torch.tensor(means), torch.tensor(scales),
                       normalize(torch.tensor(quats)), cam)
-    binned = bin_gaussians_csr(proj, cam, RasterConfig(chunk=chunk),
+    binned = bin_gaussians_csr(proj, cam,
+                               RasterConfig(chunk=chunk, layout="aligned"),
                                opacities=torch.tensor(opac))
     attrs = raster.pack_attrs(proj.means2d, proj.conic, torch.tensor(opac),
                               proj.depths, torch.tensor(feats))

@@ -18,6 +18,10 @@ from splatam_torch.render.camera import setup_camera
 from splatam_torch.render.render_tiled import rasterize_tiled
 from splatam_torch.slam.pipeline import rgbd_slam
 
+# tiny tensor ops: torch's intra-op thread pool costs more than it
+# gives here, and under parallel test workers it oversubscribes the cores
+torch.set_num_threads(1)
+
 W, H, FRAMES = 80, 60, 4
 
 
