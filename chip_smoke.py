@@ -3,11 +3,12 @@
 
 Phases, each of which must pass:
 
-1. Build the compositing kernels from this checkout with nvcc, one process
-   per source, all at once: aligned layout B1 ``csrc/raster_fwd.cu`` and
-   B2 ``csrc/raster_bwd.cu``; split layout B3a/B3b
-   ``csrc/raster_split_fwd.cu`` and B3c/B3d ``csrc/raster_split_bwd.cu``.
-   Print the toolchain and the card's name and power limit.
+1. Build the kernels from this checkout with nvcc, one process per source,
+   all at once: aligned layout B1 ``csrc/raster_fwd.cu`` and B2
+   ``csrc/raster_bwd.cu``; split layout B3a/B3b ``csrc/raster_split_fwd.cu``
+   and B3c/B3d ``csrc/raster_split_bwd.cu``; the Fisher moments B4
+   ``csrc/raster_fisher.cu``. Print the toolchain and the card's name and
+   power limit.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
    ``tests/goldens``), a saturating scene, an empty scene, and ``bench.py``'s
@@ -17,7 +18,11 @@ Phases, each of which must pass:
    render and its gradients are held against B1/B2 on the same scene.
    Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5 against
    the plain versions, 1e-6 split against aligned), saturation depth
-   exact, gradients 5e-5 of their largest magnitude.
+   exact, gradients 5e-5 of their largest magnitude. B4 (aligned binning,
+   seed 1e-3 on RGB) on the same scenes against its plain version: each
+   moment column within 1e-4 of that column's largest magnitude; and
+   ``render_fisher`` on the card against the plain path on the CPU on a
+   golden scene, within 1e-4 of the Fisher's largest magnitude.
 3. Time every kernel on the 200k scene (CUDA events after warm-up) beside
    its plain version and its bound, and time one full mapping iteration
    (forward + backward + Adam, binning frozen for 10 iterations).
@@ -37,6 +42,16 @@ Phases, each of which must pass:
    ``splatam_torch.gs.post_opt.post_splatam_opt`` with ``configs/replica/
    post_splatam_opt.py`` cut to 300 iterations; its PSNR on those frames
    must stay within 0.5 dB of the loaded map's or rise.
+7. The realtime path: ``splatam_torch.realtime.realtime_slam`` on the
+   synthetic sequence at 1200x680 with ``configs/replica/splatam.py``
+   (tracking 40 / mapping 60 iterations, window 24, keyframe every 5) cut
+   to 20 frames, the realtime CLI's gain defaults (k_sil 1000, k_eig 0.1,
+   k_sum 1, 40 Monte-Carlo poses), and gain requests of 8 candidate poses
+   before frames 5, 10 and 15. Gains must be finite with EIG > 0, the pose
+   2.5 m back must see more unmapped space than the current view, ATE
+   < 0.03 m, and every call site's launches must be exact: B3a-d for
+   tracking, densification and mapping (the config's split layout), B1
+   for the dataset's renders, B1 + B4 per H_train pose and per candidate.
 
 The last lines are a JSON line of per-kernel numbers and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -75,6 +90,12 @@ HBM_BYTES_S = 3.35e12
 # of each gradient row (7 + 1 per channel).
 FWD_OPS = (22, 2)  # (constant, per feature channel)
 BWD_OPS = (56, 4)
+# B4 per pair: the replay (19), gc over the 3 seeded channels (6), the
+# suffix, dalpha, d/dopacity and dpower (12), the five screen rows (16),
+# the 16 moment products and their 16 per-pixel sums
+FISHER_OPS = 19 + 6 + 12 + 16 + 16 + 16
+FISHER_SEED = 1e-3  # on RGB (fisher.py:148 of the JAX package)
+FISHER_TOL = 1e-4  # per moment column, of its largest magnitude
 
 
 def log(*a):
@@ -338,6 +359,73 @@ def cotangents(color, aux, nfeat, carry, rng):
     return g_color, g_aux
 
 
+def fisher_seed(dev):
+    import torch
+
+    seed = torch.zeros(8, dtype=torch.float32, device=dev)
+    seed[:3] = FISHER_SEED
+    return seed
+
+
+def compare_fisher(name, s: Setup, color, errs):
+    """B4 against its plain version on the aligned binning and the plain
+    forward's color blocks: every moment column within FISHER_TOL of that
+    column's largest magnitude (the moments are products of ~1e-3
+    gradients; atomics sum them in an order that varies run to run)."""
+    import torch
+
+    from splatam_torch.render import raster
+
+    seed = fisher_seed(color.device)
+    m1 = raster.fisher_moments_cuda(*s.args, color, seed)
+    torch.cuda.synchronize()
+    m0 = raster.fisher_moments_plain(*s.args, color, seed)
+    scale = m0.abs().amax(dim=0)
+    err = (m1 - m0).abs().amax(dim=0)
+    rel = err / scale.clamp_min(1e-30)
+    bad = (err > FISHER_TOL * scale) & (err > 0)
+    if m1.shape != m0.shape or bool(bad.any()):
+        fail(f"B4 {name}: per-column err/scale {rel.tolist()}")
+    errs["B4"] = max(errs["B4"], float(err.max()))
+    log(f"[fisher] {name:12s} K={s.binned.num_instances} B4 max abs err "
+        f"{float(err.max()):.3g}, worst column err/scale {float(rel.max()):.3g} "
+        f"(limit {FISHER_TOL:g}); column scales "
+        + " ".join(f"{v:.2g}" for v in scale.tolist()))
+
+
+def check_render_fisher(name, scene, dev):
+    """``render_fisher`` on the card (B1 + B4) against the plain path on
+    the CPU, from the same raw parameters."""
+    import torch
+
+    from splatam_torch.fisher import render_fisher
+    from splatam_torch.render.binning import RasterConfig
+    from splatam_torch.render.camera import setup_camera
+
+    means, feats, opac, scales, quats, w, h, k = scene
+    raw = {
+        "means3D": means, "rgb_colors": feats[:, :3], "unnorm_rotations": quats,
+        "logit_opacities": np.log(opac / (1 - opac)).reshape(-1, 1),
+        "log_scales": np.log(scales),
+    }
+    def fisher_on(d):
+        params = {key: torch.as_tensor(np.asarray(v, np.float32), device=d)
+                  for key, v in raw.items()}
+        cam = setup_camera(w, h, k, np.eye(4), device=d)
+        return render_fisher(
+            params, None, torch.tensor([1.0, 0, 0, 0], device=d),
+            torch.zeros(3, device=d), cam, RasterConfig(chunk=CHUNK),
+            seed_value=FISHER_SEED).cpu()
+
+    card, plain = fisher_on(dev), fisher_on(torch.device("cpu"))
+    scale = float(plain.abs().max())
+    err = float((card - plain).abs().max())
+    if not (scale > 0 and err <= FISHER_TOL * scale):
+        fail(f"render_fisher {name}: card vs CPU err {err:.3g}, scale {scale:.3g}")
+    log(f"[fisher] render_fisher {name}: card vs CPU max err {err:.3g} "
+        f"against scale {scale:.3g} (limit {FISHER_TOL:g} of scale)")
+
+
 def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     """B3a-d each against its plain version, fed the plain version's inputs
     (carries included); then the composed split render and its gradients
@@ -450,17 +538,21 @@ def check_goldens(name, scene, dev):
 
 def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     rng = np.random.default_rng(0)
-    errs = {k: 0.0 for k in ("B1", "B2", "B3a", "B3b", "B3c", "B3d")}
+    errs = {k: 0.0 for k in KERNEL_NAMES}
     for name, scene in golden_scenes().items():
         check_goldens(name, scene, dev)
         al = scene_setup(scene, dev)
-        compare_kernels(name, al, rng, errs)
+        outs = compare_kernels(name, al, rng, errs)
+        compare_fisher(name, al, outs[True][0], errs)
         compare_split_kernels(name, scene_setup(scene, dev, layout="split"),
                               al, rng, errs)
     log("[kernels] golden renders match tests/goldens")
+    check_render_fisher("dense_aniso", golden_scenes()["dense_aniso"], dev)
     for kind in ("saturating", "empty", "interior_only"):
         al = scene_setup(small_scene(kind), dev)
-        compare_kernels(kind, al, rng, errs)
+        outs = compare_kernels(kind, al, rng, errs)
+        if kind != "interior_only":
+            compare_fisher(kind, al, outs[True][0], errs)
         compare_split_kernels(kind, scene_setup(small_scene(kind), dev,
                                                 layout="split"),
                               al, rng, errs)
@@ -475,6 +567,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     )
     bench = scene_setup(scene, dev, mapping_feats=True)
     outs = compare_kernels("bench_200k", bench, rng, errs)
+    compare_fisher("bench_200k", bench, outs[True][0], errs)
     bench_split = scene_setup(scene, dev, mapping_feats=True, layout="split")
     outs_split = compare_split_kernels("bench_200k", bench_split, bench, rng,
                                        errs)
@@ -499,6 +592,15 @@ def kernel_bounds(s: Setup, evaluated, nfeat_bwd):
     fwd_ops = pairs * (FWD_OPS[0] + FWD_OPS[1] * s.nfeat)
     bwd_ops = pairs * (BWD_OPS[0] + BWD_OPS[1] * nfeat_bwd)
     return bound_ms(fwd_bytes, fwd_ops), bound_ms(bwd_bytes, bwd_ops), pairs
+
+
+def fisher_bound(s: Setup, evaluated):
+    """B4's least time in ms on this card for this run's inputs: the
+    attribute table, stream, ranges, color blocks and seed read once, the
+    (N, 16) moments written once; FISHER_OPS per evaluated pair."""
+    n, t, k = s.attrs.shape[0], s.binned.ranges.shape[0], s.binned.num_instances
+    nbytes = n * 16 * 4 + k * 4 + t * 2 * 4 + t * 8 * 256 * 4 + 8 * 4 + n * 16 * 4
+    return bound_ms(nbytes, int(evaluated.sum()) * FISHER_OPS)
 
 
 def split_bounds(s: Setup, ev_i, ev_t, nfeat_bwd):
@@ -556,12 +658,18 @@ def phase_timing(aligned, split, dev):
     fwd_plain = lambda: raster.raster_fwd_plain(*bench.args, carry)  # noqa: E731
     bwd_plain = lambda: raster.raster_bwd_plain(  # noqa: E731
         *bench.args, c0, a0, g_color, g_aux, nfeat, carry)
+    seed = fisher_seed(dev)
+    fish = lambda: raster.fisher_moments_cuda(*bench.args, c0, seed)  # noqa: E731
+    fish_plain = lambda: raster.fisher_moments_plain(  # noqa: E731
+        *bench.args, c0, seed)
     times = {
         "B1": (cuda_ms(fwd, 20), cuda_ms(fwd_plain, 2, warmup=0)),
         "B2": (cuda_ms(bwd, 20), cuda_ms(bwd_plain, 2, warmup=0)),
+        "B4": (cuda_ms(fish, 20), cuda_ms(fish_plain, 2, warmup=0)),
     }
     (b1, b1_by), (b2, b2_by), pairs = kernel_bounds(bench, evaluated, nfeat)
-    bounds = {"B1": (b1, b1_by), "B2": (b2, b2_by)}
+    bounds = {"B1": (b1, b1_by), "B2": (b2, b2_by),
+              "B4": fisher_bound(bench, evaluated)}
 
     sp, souts = split
     o = souts[carry]
@@ -685,7 +793,7 @@ def profile_block(block, iters, top=12):
             f"x{count / iters:g}/iter  {key[:90]}")
 
 
-KERNEL_NAMES = ("B1", "B2", "B3a", "B3b", "B3c", "B3d")
+KERNEL_NAMES = ("B1", "B2", "B3a", "B3b", "B3c", "B3d", "B4")
 
 
 def reset_launches():
@@ -928,6 +1036,138 @@ def phase_post_opt(dev, slam_state, frames, iters=300, size=(1200, 680)):
                 ms_per_iter=1e3 * state.timing["offline_iter"][0]), launches
 
 
+def gain_candidates(c2w):
+    """8 candidate poses [tx ty tz qx qy qz qw] around the camera pose
+    ``c2w``: the view itself, six moved 10 cm along +-x, +-y, +-z, and the
+    view moved 2.5 m back along its optical axis (tests/test_realtime.py)."""
+    from scipy.spatial.transform import Rotation
+
+    q = Rotation.from_matrix(c2w[:3, :3]).as_quat()  # x, y, z, w
+    offsets = [np.zeros(3)] + [sign * 0.1 * e for e in np.eye(3)
+                               for sign in (1.0, -1.0)]
+    offsets.append(-2.5 * c2w[:3, 2])
+    return [np.concatenate([c2w[:3, 3] + o, q]) for o in offsets]
+
+
+def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
+                   requests=(5, 10, 15), iters=(40, 60)):
+    """The realtime path through ``realtime_slam`` with the Replica config
+    (its tracking and mapping iterations ``iters``) and the realtime CLI's
+    gain defaults, gain requests before ``requests``; launches counted per
+    call site."""
+    import torch
+
+    from splatam_torch.data.synthetic import SyntheticDataset
+    from splatam_torch.eval.ate import evaluate_ate, trajectory_from_params
+    from splatam_torch.realtime import GainConfig, ReplaySource, realtime_slam
+    from splatam_torch.realtime.handler import ActiveViewHandler
+
+    config = load_config("splatam.py")
+    log(f"[cut] frames: the sequence -> {frames}")
+    if iters != (40, 60):
+        cut(config, ("tracking", "num_iters"), iters[0])
+        cut(config, ("mapping", "num_iters"), iters[1])
+    ds = SyntheticDataset(num_frames=frames, width=width, height=height,
+                          seed=0, device=dev)
+    source = ReplaySource(ds, {t: gain_candidates(ds.poses[t - 1])
+                               for t in requests})
+    gain_cfg = GainConfig(k_sil=1000.0, k_eig=0.1, k_sum=1.0, monte_carlo=mc)
+
+    sites = {site: {k: 0 for k in KERNEL_NAMES} for site in ("gains", "h_train")}
+    originals = {"gains": ActiveViewHandler.compute_gains,
+                 "h_train": ActiveViewHandler.recompute_h_train_inv}
+
+    def counted(site):
+        def call(*args, **kwargs):
+            before = read_launches()
+            out = originals[site](*args, **kwargs)
+            for k, v in read_launches().items():
+                sites[site][k] += v - before[k]
+            return out
+        return call
+
+    ActiveViewHandler.compute_gains = counted("gains")
+    ActiveViewHandler.recompute_h_train_inv = counted("h_train")
+    try:
+        reset_launches()
+        t0 = time.time()
+        state, handler = realtime_slam(config, source, gain_cfg,
+                                       progress=False, device=dev)
+        wall = time.time() - t0
+        launches = read_launches()
+    finally:
+        ActiveViewHandler.compute_gains = originals["gains"]
+        ActiveViewHandler.recompute_h_train_inv = originals["h_train"]
+
+    c, hc = state.counts, handler.counts
+    poses = sum(min(t + 1, mc) for t in range(frames))
+    if hc != {"h_train_poses": poses, "gain_candidates": 8 * len(requests)}:
+        fail(f"realtime: Fisher poses and candidates {hc}, expected "
+             f"{poses} and {8 * len(requests)}")
+    run_iters = c["tracking_iters"] + c["mapping_iters"]
+    slam_site = {k: launches[k] - sites["gains"][k] - sites["h_train"][k]
+                 for k in KERNEL_NAMES}
+    expect_slam = expected_launches(
+        state.layout, run_iters + c["densify_renders"], run_iters)
+    expect_slam["B1"] += frames  # the dataset's renders (aligned)
+    for site, got, expect in (
+            ("realtime slam", slam_site, expect_slam),
+            ("realtime h_train", sites["h_train"],
+             dict(expected_launches("aligned", poses, 0), B4=poses)),
+            ("realtime gains", sites["gains"],
+             dict(expected_launches("aligned", hc["gain_candidates"], 0),
+                  B4=hc["gain_candidates"]))):
+        check_launches(site, got, expect)
+    if (c["tracking_iters"] != iters[0] * (frames - 1)
+            or c["mapping_iters"] != iters[1] * frames):
+        fail(f"realtime iterations {c} are not {iters} per frame")
+
+    hinv = handler.h_train_inv
+    n = state.params["means3D"].shape[0]
+    if hinv is None or hinv.shape != (n, 4) or not np.all(hinv > 0):
+        fail(f"realtime: h_train_inv {None if hinv is None else hinv.shape} "
+             f"is not a positive ({n}, 4) table")
+    for t, gains in zip(requests, source.published):
+        log(f"[realtime] gains before frame {t}: "
+            + " ".join(f"{g['sil']:.1f}/{g['eig']:.4g}" for g in gains)
+            + " (sil/eig per candidate)")
+        if not all(math.isfinite(g["gain"]) and g["eig"] > 0 for g in gains):
+            fail(f"realtime: gains before frame {t} not finite with EIG > 0")
+        if not gains[-1]["sil"] > gains[0]["sil"]:
+            fail(f"realtime: the far pose's sil {gains[-1]['sil']} does not "
+                 f"exceed the current view's {gains[0]['sil']}")
+    if len(source.published) != len(requests):
+        fail(f"realtime: {len(source.published)} gain lists published")
+    gt, est = trajectory_from_params(state.params, state.first_w2c,
+                                     state.gt_w2c_all)
+    ate = evaluate_ate(gt, est)
+    if not ate < 0.03:
+        fail(f"realtime ATE {ate} m")
+    result = dict(
+        ate_m=ate, gaussians=n, s_per_frame=float(np.mean(state.timing["frame"])),
+        ms_per_candidate=1e3 * sum(handler.timing["gains"]) / hc["gain_candidates"],
+        ms_per_h_train=1e3 * float(np.mean(handler.timing["h_train"])),
+        ms_per_h_train_pose=1e3 * sum(handler.timing["h_train"]) / poses,
+    )
+    log(f"[realtime] {frames} frames in {wall:.1f} s, layout {state.layout}: "
+        f"{result['s_per_frame']:.3f} s/frame (H_train recompute included); "
+        f"{result['ms_per_candidate']:.2f} ms per scored candidate, "
+        f"{result['ms_per_h_train']:.1f} ms per H_train recompute "
+        f"({result['ms_per_h_train_pose']:.2f} ms per pose, {poses} poses); "
+        f"ATE {ate:.5f} m, {n} gaussians")
+    if dev.type == "cuda":
+        def block():
+            handler.compute_gains(state.params, None,
+                                  gain_candidates(ds.poses[frames - 1]))
+            handler.recompute_h_train_inv(state.params, None)
+
+        log(f"[realtime] profile: one gain request (8 candidates) and one "
+            f"H_train recompute ({min(frames, mc)} poses)")
+        profile_block(block, 1)
+    torch.cuda.empty_cache()
+    return result, launches
+
+
 SOURCES = {
     "B1": ("raster_fwd", "raster_fwd.cu", 567),
     "B2": ("raster_bwd", "raster_bwd.cu", 962),
@@ -935,12 +1175,13 @@ SOURCES = {
     "B3b": ("raster_split_tail_fwd", "raster_split_fwd.cu", 1036),
     "B3c": ("raster_split_int_bwd", "raster_split_bwd.cu", 990),
     "B3d": ("raster_split_tail_bwd", "raster_split_bwd.cu", 1196),
+    "B4": ("raster_fisher", "raster_fisher.cu", 1495),
 }
 
 
 def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
-          offline=None, post=None):
-    """Phases 2-6 on ``dev``. Returns (the kernels' JSON entries, a
+          offline=None, post=None, realtime=None):
+    """Phases 2-7 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
 
@@ -964,9 +1205,14 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     post_, post_launches = phase_post_opt(dev, slam_state, frames,
                                           **(post or {}))
     log(f"[post_opt] phase in {time.time() - t:.1f} s")
-    # the main paths' launches: SLAM, offline training and refinement
+    del slam_state
+    torch.cuda.empty_cache()
+    t = time.time()
+    rt, rt_launches = phase_realtime(dev, **(realtime or {}))
+    log(f"[realtime] phase in {time.time() - t:.1f} s")
+    # the main paths' launches: SLAM, offline training, refinement, realtime
     for k in KERNEL_NAMES:
-        launches[k] += off_launches[k] + post_launches[k]
+        launches[k] += off_launches[k] + post_launches[k] + rt_launches[k]
 
     kernels = [
         {
@@ -986,7 +1232,9 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
         + f"; SLAM {slam['s_per_frame']} s/frame; offline "
         f"{off['ms_per_iter']:.2f} ms/iteration, PSNR {off['psnr']:.2f} dB; "
         f"refinement {post_['ms_per_iter']:.2f} ms/iteration, PSNR "
-        f"{post_['psnr_loaded']:.2f} -> {post_['psnr']:.2f} dB")
+        f"{post_['psnr_loaded']:.2f} -> {post_['psnr']:.2f} dB; realtime "
+        f"{rt['s_per_frame']:.3f} s/frame, {rt['ms_per_candidate']:.2f} ms "
+        f"per candidate, {rt['ms_per_h_train']:.1f} ms per H_train recompute")
     return kernels, summary
 
 

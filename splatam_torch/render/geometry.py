@@ -145,6 +145,8 @@ def preprocess(
     rotations: torch.Tensor,  # (N, 4) normalized (w, x, y, z)
     cam: Camera,
     active: torch.Tensor | None = None,  # (N,) bool; inactive rows are culled
+    cov3d_precomp: torch.Tensor | None = None,  # (N, 6); then scales and
+    # rotations are not read
 ) -> Projected:
     """Project Gaussians to screen space; cull; conics and tile rects."""
     grid_x, grid_y = grid_dims(cam)
@@ -163,7 +165,10 @@ def preprocess(
     mean_y = ndc2pix(p_proj[:, 1], cam.image_height)
     means2d = torch.stack([mean_x, mean_y], dim=-1)
 
-    cov3d = compute_cov3d(scales, rotations, cam.scale_modifier)
+    if cov3d_precomp is None:
+        cov3d = compute_cov3d(scales, rotations, cam.scale_modifier)
+    else:
+        cov3d = cov3d_precomp
     cov2d = compute_cov2d(
         means3d, cov3d, cam.viewmatrix, cam.focal_x, cam.focal_y,
         cam.tanfovx, cam.tanfovy, valid=valid,

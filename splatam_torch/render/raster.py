@@ -1,5 +1,5 @@
 """Tile compositing: the kernels B1/B2 and B3a-d, their plain versions,
-and autograd.
+and autograd; and the Fisher moments kernel B4.
 
 Counterpart of ``splatam_tpu/render/pallas_raster.py``. The differentiable
 boundary is the per-gaussian (N, 16) attribute table (``pack_attrs``), as in
@@ -14,6 +14,10 @@ backward returns (N, 16) per-gaussian gradients. Two stream layouts
   residue-pair tail forward seeded from it, composed here; B3c interior
   backward with its own carry, B3d tail backward
   (``csrc/raster_split_fwd.cu``, ``csrc/raster_split_bwd.cu``).
+
+B4 (``csrc/raster_fisher.cu``, ``fisher_moments``) replays the aligned
+forward under a constant seed cotangent and sums squared per-pixel
+gradients per gaussian: the diagonal Fisher of active view selection.
 
 On a CUDA tensor every wrapper launches its hand-written kernel (built with
 nvcc at first use, bound with ctypes); a failed build or launch raises. On
@@ -58,10 +62,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("raster_fwd", "raster_bwd", "raster_split_fwd",
-                  "raster_split_bwd")
+                  "raster_split_bwd", "raster_fisher")
 # per-tile carries of the split layout, channel-major (T, rows, NPIX)
 FWD_CARRY_ROWS = 3  # signed T (negative = dead), median-depth sum, sat cand
 BWD_CARRY_ROWS = 2  # signed T, running prefix of w * gc
+# B4's moment rows: the upper triangle of sum_p v v^T over the screen
+# quantities v = (x, y, conic a, b, c) in (a, b) order, then sum_p dop^2
+TRI_PAIRS = tuple((a, b) for a in range(5) for b in range(a, 5))
+FISHER_ROWS = len(TRI_PAIRS) + 1
 
 
 class RasterOut(NamedTuple):
@@ -207,10 +215,13 @@ SPLIT_INT_BWD_KERNEL = CudaKernel("raster_split_bwd", "raster_split_int_bwd",
 #                       aux, g_color, g_aux, grad, stream)
 SPLIT_TAIL_BWD_KERNEL = CudaKernel("raster_split_bwd",
                                    "raster_split_tail_bwd", 6, 6, 5)
+# raster_fisher(attrs, gid, ranges, num_tiles, grid_x, chunk, color, seed,
+#               mom, stream)
+FISHER_KERNEL = CudaKernel("raster_fisher", "raster_fisher", 3, 3, 3)
 KERNELS = {
     "B1": FWD_KERNEL, "B2": BWD_KERNEL, "B3a": SPLIT_INT_FWD_KERNEL,
     "B3b": SPLIT_TAIL_FWD_KERNEL, "B3c": SPLIT_INT_BWD_KERNEL,
-    "B3d": SPLIT_TAIL_BWD_KERNEL,
+    "B3d": SPLIT_TAIL_BWD_KERNEL, "B4": FISHER_KERNEL,
 }
 
 
@@ -364,6 +375,24 @@ def raster_split_tail_bwd_cuda(attrs, binned: BinnedSplit, bcarry, grid_x,
             g_color.data_ptr(), g_aux.data_ptr(), grad.data_ptr(),
         )
     return grad
+
+
+def fisher_moments_cuda(attrs, sorted_gid, ranges, grid_x, chunk, color,
+                       seed):
+    """Launch B4 on the forward's ``color`` blocks (T, 8, NPIX) under the
+    per-channel ``seed`` (8,). Returns the (N, FISHER_ROWS) moment table."""
+    _check_common(attrs, sorted_gid, ranges, chunk)
+    t = ranges.shape[0]
+    _check(color, "color", torch.float32, (t, NFEAT_PAD, NPIX))
+    _check(seed, "seed", torch.float32, (NFEAT_PAD,))
+    mom = torch.zeros((attrs.shape[0], FISHER_ROWS), dtype=torch.float32,
+                      device=attrs.device)
+    FISHER_KERNEL.launch(
+        attrs.device, attrs.data_ptr(), sorted_gid.data_ptr(),
+        ranges.data_ptr(), t, grid_x, chunk, color.data_ptr(),
+        seed.data_ptr(), mom.data_ptr(),
+    )
+    return mom
 
 
 # ---------------------------------------------------------------------------
@@ -705,6 +734,74 @@ def raster_split_tail_bwd_plain(attrs, binned: BinnedSplit, bcarry, grid_x,
         torch.where(hi, c[:, 1], c.new_zeros(())),
     )
     return grad
+
+
+def fisher_moments_plain(attrs, sorted_gid, ranges, grid_x, chunk, color,
+                        seed):
+    """Plain B4: the same replay and squared per-pixel gradients as the
+    kernel, in tensor ops. Returns the (N, FISHER_ROWS) moment table."""
+    t = ranges.shape[0]
+    tiles = torch.arange(t, device=attrs.device)
+    px, py = _pixel_centers(tiles, grid_x)
+    gtot = (color * seed[None, :, None]).sum(dim=1)  # (T, NPIX)
+    trans, dead, accw = _fresh_bwd(t, attrs)
+    mom = attrs.new_zeros((attrs.shape[0], FISHER_ROWS))
+    for rows, gid, valid in _blocks(attrs, sorted_gid, ranges, chunk):
+        dx, dy, praw, epow, raw, alpha = _pairs(rows, px, py)
+        t_before, live, _, trans, dead = _replay(alpha, trans, dead)
+        zero = torch.zeros_like(alpha)
+        gc = (rows[..., ROW_FEAT0:] * seed).sum(-1)[..., None]  # (S, C, 1)
+        w = torch.where(live, alpha * t_before, zero)
+        prefix = accw[:, None] + torch.cumsum(w * gc, dim=1)
+        accw = prefix[:, -1]
+        dalpha = torch.where(
+            live, t_before * gc - (gtot[:, None] - prefix) / (1 - alpha), zero
+        )
+        unclamped = (raw >= ALPHA_MIN) & (raw < ALPHA_CAP)
+        dop = torch.where(unclamped, dalpha * epow, zero)
+        dpower = torch.where(unclamped & (praw <= 0), dalpha * alpha, zero)
+        ca = rows[..., ROW_CA, None]
+        cb = rows[..., ROW_CB, None]
+        cc = rows[..., ROW_CC, None]
+        v = (
+            dpower * -(ca * dx + cb * dy),
+            dpower * -(cc * dy + cb * dx),
+            dpower * (-0.5 * (dx * dx)),
+            dpower * -(dx * dy),
+            dpower * (-0.5 * (dy * dy)),
+        )
+        m = torch.stack(
+            [(v[a] * v[b]).sum(-1) for a, b in TRI_PAIRS]
+            + [(dop * dop).sum(-1)], dim=-1,
+        )
+        mom.index_add_(0, gid[valid], m[valid])
+    return mom
+
+
+def fisher_moments(attrs, binned: Binned, grid_x: int, chunk: int,
+                   seed: torch.Tensor, tile_color=None) -> torch.Tensor:
+    """Per-gaussian (N, FISHER_ROWS) squared-gradient moments under the
+    per-channel backward ``seed`` (8,), on an aligned binning: B4 on a CUDA
+    tensor, its plain version on a CPU one
+    (``pallas_raster.py::fisher_moments``).
+
+    ``tile_color`` passes the (T, 8, NPIX) forward color blocks of a render
+    at this pose and binning (the gains path's silhouette render) and saves
+    this function's own forward (B1); the seed weights only channels that
+    both renders compute alike."""
+    if not isinstance(binned, Binned):
+        raise ValueError("fisher_moments needs an aligned binning (Binned)")
+    attrs = attrs.contiguous()
+    seed = seed.to(device=attrs.device, dtype=torch.float32).contiguous()
+    args = (attrs, binned.sorted_gid, binned.ranges, grid_x, chunk)
+    if tile_color is not None:
+        color = tile_color.contiguous()
+    elif attrs.is_cuda:
+        color, _ = raster_fwd_cuda(*args, carry_depth=False)
+    else:
+        color, _, _ = raster_fwd_plain(*args, carry_depth=False)
+    fn = fisher_moments_cuda if attrs.is_cuda else fisher_moments_plain
+    return fn(*args, color, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ port's data loaders.
 """
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import os
 import random
@@ -44,3 +45,15 @@ def prepare_results_dir(config: Dict, config_path: str) -> str:
     except shutil.SameFileError:
         pass
     return results_dir
+
+
+def standard_argparser(description: str) -> argparse.ArgumentParser:
+    """The CLIs' shared flags: the experiment config, ``--run_name`` and
+    ``--device`` (cuda unless ``cpu`` is asked for)."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("config", type=str, help="Path to experiment config (.py)")
+    p.add_argument("--run_name", type=str, default=None,
+                   help="Override the experiment's run name")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu")
+    return p

@@ -69,6 +69,7 @@ class SlamState:
         self.params: Params = {}
         self.variables: Variables = {}
         self.keyframe_list: List[Dict] = []
+        self.keyframe_time_indices: List[int] = []
         self.gt_w2c_all: List[np.ndarray] = []
         self.cam = None
         self.intrinsics = None
@@ -77,6 +78,7 @@ class SlamState:
         self.timing = {
             "tracking_iter": [], "tracking_frame": [],
             "mapping_iter": [], "mapping_frame": [],
+            "frame": [],  # whole frames (the realtime driver)
         }
         # iterations run and renders made, for launch accounting
         self.counts = {"tracking_iters": 0, "mapping_iters": 0,
@@ -257,6 +259,7 @@ def rgbd_slam(config: Dict, dataset, progress: bool = True,
                 {"id": time_idx, "est_w2c": curr_w2c, "im": frame_im,
                  "depth": frame_depth}
             )
+            state.keyframe_time_indices.append(time_idx)
 
         if progress and (time_idx % 10 == 0 or time_idx == num_frames - 1):
             print(f"frame {time_idx}/{num_frames}  "

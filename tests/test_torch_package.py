@@ -28,6 +28,9 @@ def test_import_leaves_jax_out():
         "import splatam_torch.gs.offline, splatam_torch.gs.post_opt\n"
         "import splatam_torch.utils.checkpoint, splatam_torch.utils.ply\n"
         "import splatam_torch.eval.metrics, splatam_torch.run.common\n"
+        "import splatam_torch.fisher, splatam_torch.realtime\n"
+        "import splatam_torch.realtime.ros_bridge, splatam_torch.run.realtime\n"
+        "import splatam_torch.utils.dump\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -61,6 +64,8 @@ def _entry_points():
     from splatam_torch.gs.post_opt import post_splatam_opt
     from splatam_torch.slam.pipeline import rgbd_slam
     from splatam_torch.utils.checkpoint import load_params
+    from splatam_torch.realtime import realtime_slam
+    from splatam_torch.run import realtime
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -78,12 +83,15 @@ def _entry_points():
         "post_splatam_opt": lambda: post_splatam_opt(
             {"data": {"num_frames": 1}}, None, {}),
         "load_params": lambda: load_params("params.npz"),
+        "realtime_slam": lambda: realtime_slam({}, None),
+        "realtime.main": lambda: realtime.main(["config.py"]),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["rasterize_tiled", "rgbd_slam", "synthetic_slam.main", "setup_camera",
-             "offline_splatting", "post_splatam_opt", "load_params"]
+             "offline_splatting", "post_splatam_opt", "load_params",
+             "realtime_slam", "realtime.main"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it
