@@ -7,8 +7,10 @@ Phases, each of which must pass:
    all at once: aligned layout B1 ``csrc/raster_fwd.cu`` and B2
    ``csrc/raster_bwd.cu``; split layout B3a/B3b ``csrc/raster_split_fwd.cu``
    and B3c/B3d ``csrc/raster_split_bwd.cu``; the Fisher moments B4
-   ``csrc/raster_fisher.cu``. Print the toolchain and the card's name and
-   power limit.
+   ``csrc/raster_fisher.cu``; the measurement probes P1-P4
+   ``csrc/probe_ablate.cu``, ``probe_ops.cu``, ``probe_ilp.cu``,
+   ``probe_step.cu``. Print the toolchain (and whether Triton imports) and
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
    ``tests/goldens``), a saturating scene, an empty scene, and ``bench.py``'s
@@ -24,25 +26,43 @@ Phases, each of which must pass:
    ``render_fisher`` on the card against the plain path on the CPU on a
    golden scene, within 1e-4 of the Fisher's largest magnitude.
 3. Time every kernel on the 200k scene (CUDA events after warm-up) beside
-   its plain version and its bound, and time one full mapping iteration
-   (forward + backward + Adam, binning frozen for 10 iterations).
-4. The SLAM path: ``splatam_torch.run.synthetic_slam`` at Replica width
+   its plain version and its bound, and time one SLAM mapping iteration
+   (``map_step``: forward + backward + Adam at chunk 128, binning frozen
+   for 10 iterations) in each layout.
+4. ``[bench]``: B1-B3d at chunk 256 on the benchmark's own trimmed streams
+   against their plain versions; then ``python -m splatam_torch.bench``
+   (``bench.py``'s program: 200k gaussians at 1200x680, gradient only,
+   chunk 256, 10 iterations binned once) in the split and the aligned
+   layout, with exact launch counts (per layout: the trim probe's forward,
+   then 10 iterations of warm-up and 10 timed); its JSON line, the
+   iteration ms and the trimmed instance count, the loss finite; then the
+   top device ops of each run.
+5. ``[probes]``: P1 (B2's stages, ``full`` against B2 within GRAD_TOL, the
+   other stages per pixel at 1e-5 + 1e-4 rel, on the bench's aligned
+   stream), P2 (every op and dtype at reps 3: f32 at 1e-5 + 1e-4 rel, bf16
+   exactly), P3 (every case at reps 0, 1 and 4, within 1e-4 of each
+   output's largest magnitude) and P4 (every body, 1e-4 of
+   the output's largest magnitude) against their plain versions at the
+   tools' default sizes; then each probe's run as the main path, with
+   exact launch counts, printing the tools' tables and the rates against
+   the card's peaks.
+6. The SLAM path: ``splatam_torch.run.synthetic_slam`` at Replica width
    (1200x680, tracking 40 / mapping 60 iterations, window 24, keyframe
    every 5, 60 frames), with every kernel's launch count set to 0 just
    before and read just after; they must match what each call site runs
    (frame 0 resolves the SLAM renders' layout; the evaluation renders are
    split, the dataset's ground-truth renders aligned).
-5. The offline path: ``splatam_torch.gs.offline.offline_splatting`` at
+7. The offline path: ``splatam_torch.gs.offline.offline_splatting`` at
    1200x680 on 10 synthetic frames with ``configs/replica/
    gaussian_splatting.py`` as it is, cut to 500 iterations with the
    densification schedule scaled to match; PSNR must rise and end above
    20 dB, depth L1 below 5 cm; B3a-d launch once per iteration (B3a/B3b
    also per densification and evaluation render), B1/B2 never.
-6. The refinement path: the SLAM map saved with ``save_params``, refined by
+8. The refinement path: the SLAM map saved with ``save_params``, refined by
    ``splatam_torch.gs.post_opt.post_splatam_opt`` with ``configs/replica/
    post_splatam_opt.py`` cut to 300 iterations; its PSNR on those frames
    must stay within 0.5 dB of the loaded map's or rise.
-7. The realtime path: ``splatam_torch.realtime.realtime_slam`` on the
+9. The realtime path: ``splatam_torch.realtime.realtime_slam`` on the
    synthetic sequence at 1200x680 with ``configs/replica/splatam.py``
    (tracking 40 / mapping 60 iterations, window 24, keyframe every 5) cut
    to 20 frames, the realtime CLI's gain defaults (k_sil 1000, k_eig 0.1,
@@ -53,8 +73,8 @@ Phases, each of which must pass:
    tracking, densification and mapping (the config's split layout), B1
    for the dataset's renders, B1 + B4 per H_train pose and per candidate.
 
-The last lines are a JSON line of per-kernel numbers and
-``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
+The last lines are a JSON line of per-kernel numbers (all eleven kernels;
+P1's also carries its per-stage ms) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--frames N]  (SLAM frames, default 60)
@@ -81,6 +101,15 @@ GRAD_TOL = 5e-5  # of the largest gradient magnitude (tests/test_pallas.py)
 # outside the tensor cores, and HBM bandwidth
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# and for the probes' bounds: bf16 outside the tensor cores (packed pairs,
+# twice the f32 rate; the Hopper architecture white paper), the dense bf16
+# tensor-core rate (data sheet), and the special-function unit (exp2, log2,
+# ...): 16 results per clock per SM (CUDA C++ Programming Guide, throughput
+# table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
+BF16X2_PEAK_FLOPS = 133.8e12
+BF16_TC_FLOPS = 989e12
+SFU_OPS_S = 16 * 132 * 1.98e9
+MAP_FEATS = 6  # the mapping loss's fused channels: RGB, depth, silhouette, depth^2
 # f32 operations per (pixel, instance) pair that the kernels' function
 # needs (exp counted as one): alpha 16, transmittance test and weight 4,
 # median-depth crossing 2, then 2 per feature channel for the blend. The
@@ -175,42 +204,19 @@ def small_scene(kind, seed=3):
     return (*f32, w, h, k)
 
 
-def bench_params(n=200_000, w=1200, h=680, seed=0):
-    """``bench.py::make_scene``: a box of small gaussians at depth 1..6."""
-    rng = np.random.default_rng(seed)
-    means = np.stack([rng.uniform(-2.2, 2.2, n), rng.uniform(-1.3, 1.3, n),
-                      rng.uniform(1.0, 6.0, n)], axis=-1).astype(np.float32)
-    k = [[600.0, 0, w / 2], [0, 600.0, h / 2], [0, 0, 1]]
-    params = {
-        "means3D": means,
-        "rgb_colors": rng.uniform(0, 1, (n, 3)).astype(np.float32),
-        "unnorm_rotations": (rng.normal(size=(n, 4))
-                             + np.array([2.0, 0, 0, 0])).astype(np.float32),
-        "logit_opacities": rng.normal(1.0, 1.0, (n, 1)).astype(np.float32),
-        "log_scales": rng.uniform(-5.2, -3.8, (n, 1)).astype(np.float32),
-    }
-    return params, w, h, k
-
-
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
 
 
 def cuda_ms(fn, reps, warmup=1):
+    """Mean ms of ``fn()`` on the card (CUDA events after ``warmup``)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from splatam_torch.bench.timing import time_ms
+
+    return time_ms(fn, reps, torch.device("cuda", torch.cuda.current_device()),
+                   warmup)
 
 
 def nvidia_smi_line():
@@ -235,20 +241,71 @@ def phase_build():
                           text=True, timeout=60).stdout.strip()
     log(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
     log(nvcc or "nvcc --version printed nothing")
+    try:  # the toolchain record only: no kernel of the port is Triton's
+        import triton
+
+        log(f"[build] triton {triton.__version__} imports")
+    except Exception as e:  # noqa: BLE001
+        log(f"[build] triton does not import: {e!r}")
+    check_sass()
+
+
+# Tensor-core products each probe kernel must keep in its SASS, per
+# (source, template arguments in the mangled name): P3's pass is 144
+# mma.sync per 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2
+# terms), dual two passes; P4's mxu 72 per 16-row tile, the two-product
+# bodies (mxu2dep, mxu2ind) 144.
+MIN_HMMA = {
+    ("probe_ilp", "ILi1E"): 144, ("probe_ilp", "ILi2E"): 144,
+    ("probe_ilp", "ILi3E"): 288,
+    ("probe_step", "ILi2E"): 72, ("probe_step", "ILi3E"): 144,
+    ("probe_step", "ILi4E"): 144,
+}
+
+
+def check_sass():
+    """Count the mma instructions (HMMA) ptxas kept in each tensor-core
+    probe: it may merge products it can prove equal, and then the probe
+    would time less work than it reports."""
+    import shutil
+
+    from splatam_torch.render import raster
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src in ("probe_ilp", "probe_step"):
+        sass = subprocess.run([tool, "-sass", str(raster._library_path(src))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+        for (name, tag), least in MIN_HMMA.items():
+            if name != src:
+                continue
+            got = [c for f, c in counts.items() if f"kernel{tag}" in f]
+            if len(got) != 1 or got[0] < least:
+                fail(f"{src} {tag}: {got} mma instructions in its SASS, "
+                     f"expected at least {least}")
+            log(f"[build] {src} {tag}: {got[0]} mma instructions "
+                f"(at least {least})")
     log(f"card: {nvidia_smi_line()}")
 
 
 class Setup:
     """One view's kernel inputs: the attribute table and its binning."""
 
-    def __init__(self, attrs, binned, grid_x, nfeat):
-        self.attrs, self.binned, self.grid_x, self.nfeat = (
-            attrs, binned, grid_x, nfeat)
+    def __init__(self, attrs, binned, grid_x, nfeat, chunk=CHUNK):
+        self.attrs, self.binned, self.grid_x, self.nfeat, self.chunk = (
+            attrs, binned, grid_x, nfeat, chunk)
 
     @property
     def args(self):
         return (self.attrs, self.binned.sorted_gid, self.binned.ranges,
-                self.grid_x, CHUNK)
+                self.grid_x, self.chunk)
 
 
 def scene_setup(scene, dev, mapping_feats=False, layout="aligned"):
@@ -334,13 +391,18 @@ def check_equal(label, got, ref):
         fail(f"{label}: differs (max err {max_err(got, ref):.3g})")
 
 
-def check_grad(label, got, ref):
-    """Max abs error within GRAD_TOL of the reference's largest magnitude."""
+def check_scaled(label, got, ref, rel):
+    """Max abs error within ``rel`` of the reference's largest magnitude."""
     scale = ref.abs().max().item() if ref.numel() else 0.0
     err = max_err(got, ref)
-    if err > GRAD_TOL * max(scale, 1e-30) and err > 0:
+    if got.shape != ref.shape or (err > rel * max(scale, 1e-30) and err > 0):
         fail(f"{label}: max err {err:.3g} against scale {scale:.3g}")
     return err, scale
+
+
+def check_grad(label, got, ref):
+    """Max abs error within GRAD_TOL of the reference's largest magnitude."""
+    return check_scaled(label, got, ref, GRAD_TOL)
 
 
 def cotangents(color, aux, nfeat, carry, rng):
@@ -434,15 +496,15 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
 
     from splatam_torch.render import raster
 
-    b, gx = sp.binned, sp.grid_x
+    b, gx, chunk = sp.binned, sp.grid_x, sp.chunk
     out = {}
     for carry, nfeat in ((True, sp.nfeat), (False, min(sp.nfeat, 4))):
         tag = f"{name} carry_depth={carry}"
-        c1, a1, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx, CHUNK,
+        c1, a1, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx, chunk,
                                                       carry)
         torch.cuda.synchronize()
         c0, a0, k0, ev_i = raster.raster_split_int_fwd_plain(
-            sp.attrs, b, gx, CHUNK, carry)
+            sp.attrs, b, gx, chunk, carry)
         e3a = max(check_close(f"B3a {tag} color", c1, c0, FWD_ATOL),
                   check_close(f"B3a {tag} median depth", a1[:, 0], a0[:, 0],
                               FWD_ATOL),
@@ -454,10 +516,10 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
         check_equal(f"B3a {tag} carry candidate", k1[:, 2], k0[:, 2])
 
         cp1, ap1 = raster.raster_split_tail_fwd_cuda(sp.attrs, b, k0, gx,
-                                                     CHUNK, carry)
+                                                     chunk, carry)
         torch.cuda.synchronize()
         cp0, ap0, ev_t = raster.raster_split_tail_fwd_plain(
-            sp.attrs, b, k0, gx, CHUNK, carry)
+            sp.attrs, b, k0, gx, chunk, carry)
         e3b = max(check_close(f"B3b {tag} color", cp1, cp0, FWD_ATOL),
                   check_close(f"B3b {tag} median depth", ap1[:, :, 0],
                               ap0[:, :, 0], FWD_ATOL),
@@ -468,7 +530,7 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
 
         color, aux = raster.compose_split(b, c0, a0, cp0, ap0)
         g_color, g_aux = cotangents(color, aux, nfeat, carry, rng)
-        bwd_args = (gx, CHUNK, color, aux, g_color, g_aux, nfeat, carry)
+        bwd_args = (gx, chunk, color, aux, g_color, g_aux, nfeat, carry)
         g1, bc1 = raster.raster_split_int_bwd_cuda(sp.attrs, b, *bwd_args)
         torch.cuda.synchronize()
         g0, bc0 = raster.raster_split_int_bwd_plain(sp.attrs, b, *bwd_args)
@@ -485,7 +547,7 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
         ca, aa = raster.raster_fwd_cuda(*al.args, carry)
         cs, as_ = raster.compose_split(
             b, c1, a1, *raster.raster_split_tail_fwd_cuda(sp.attrs, b, k1, gx,
-                                                          CHUNK, carry))
+                                                          chunk, carry))
         e_sa = max(check_close(f"split vs aligned {tag} color", cs, ca,
                                FWD_ATOL),
                    check_close(f"split vs aligned {tag} median depth",
@@ -496,7 +558,7 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
                     aa[:, 2:])
         ga = raster.raster_bwd_cuda(*al.args, ca, aa, g_color, g_aux, nfeat,
                                     carry)
-        sargs = (gx, CHUNK, cs, as_, g_color, g_aux, nfeat, carry)
+        sargs = (gx, chunk, cs, as_, g_color, g_aux, nfeat, carry)
         gs, bcs = raster.raster_split_int_bwd_cuda(sp.attrs, b, *sargs)
         gs = raster.raster_split_tail_bwd_cuda(sp.attrs, b, bcs, *sargs,
                                                grad=gs)
@@ -558,7 +620,9 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
                               al, rng, errs)
     # the 200k scene as the mapping loss renders it: isotropic scales,
     # sigmoid opacities, 6 fused channels
-    p, w, h, k = bench_params(*bench_size)
+    from splatam_torch.bench.scene import make_scene
+
+    p, w, h, k = make_scene(*bench_size)
     scene = (
         p["means3D"], p["rgb_colors"],
         (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
@@ -574,10 +638,12 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     return errs, (bench, outs), (bench_split, outs_split)
 
 
-def bound_ms(nbytes, ops):
-    """The least time on this card (ms) for moving ``nbytes`` and doing
-    ``ops`` f32 operations, and which of the two bounds it."""
-    tb, to = nbytes / HBM_BYTES_S, ops / F32_PEAK_FLOPS
+def bound_ms(nbytes, ops, tc_flops=0.0):
+    """The least time on this card (ms) for moving ``nbytes``, doing ``ops``
+    f32 operations and ``tc_flops`` on the tensor cores (the units
+    overlapping perfectly), and which bounds it: bytes or operations."""
+    tb = nbytes / HBM_BYTES_S
+    to = max(ops / F32_PEAK_FLOPS, tc_flops / BF16_TC_FLOPS)
     return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
 
 
@@ -711,18 +777,21 @@ def phase_timing(aligned, split, dev):
 
 
 def phase_iteration(dev, layout, iters=10, bench_size=(200_000, 1200, 680)):
-    """One mapping iteration (render + loss + backward + Adam) on the 200k
-    scene in the stream ``layout``, binning frozen for ``iters`` iterations
-    and capped at the previous render's saturation depth (bench.py's
-    loop)."""
+    """One SLAM mapping iteration (render + loss + backward + Adam,
+    ``map_step``) at chunk 128 on the 200k scene in the stream ``layout``,
+    binning frozen for ``iters`` iterations and capped at the previous
+    render's saturation depth. Not bench.py's program: that one is
+    ``splatam_torch.bench`` (gradient only, chunk 256), in ``[bench]``."""
     import torch
 
+    from splatam_torch.bench.profile import profile_block
+    from splatam_torch.bench.scene import make_scene
     from splatam_torch.core.losses import compute_binned
     from splatam_torch.render.binning import RasterConfig
     from splatam_torch.render.camera import setup_camera
     from splatam_torch.slam.mapping import init_mapping_optimizer, map_step
 
-    params_np, w, h, k = bench_params(*bench_size)
+    params_np, w, h, k = make_scene(*bench_size)
     params = {key: torch.as_tensor(v, device=dev) for key, v in params_np.items()}
     cam = setup_camera(w, h, k, np.eye(4), device=dev)
     cfg = RasterConfig(chunk=CHUNK, layout=layout)
@@ -750,50 +819,18 @@ def phase_iteration(dev, layout, iters=10, bench_size=(200_000, 1200, 680)):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / iters
     if not all(bool(torch.isfinite(v)) for v in res.losses.values()):
-        fail("mapping iteration on the 200k scene gave a non-finite loss")
+        fail("map_step on the 200k scene gave a non-finite loss")
     mpix_s = w * h / (ms * 1e-3) / 1e6
-    log(f"[iteration] {layout}: 200k gaussians at {w}x{h}: {ms:.3f} ms per forward + "
-        f"backward + Adam iteration (binning frozen for {iters}), "
-        f"{mpix_s:.2f} Mpix/s; library_ms none (no single PyTorch call "
-        f"computes this function)")
+    log(f"[map_step c{CHUNK}] {layout}: 200k gaussians at {w}x{h}: {ms:.3f} ms "
+        f"per map_step (forward + backward + Adam, binning frozen for "
+        f"{iters}), {mpix_s:.2f} Mpix/s")
     if dev.type == "cuda":
         profile_block(block, iters)
     return ms, mpix_s
 
 
-def profile_block(block, iters, top=12):
-    """Where one block of iterations spends the device's time: the share of
-    the wall time the device was busy, and the costliest device ops."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        block()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, sets): the host ops that
-    # launched them report the same time again
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(r[1] for r in rows)
-    if not rows:
-        log("[profile] the profiler saw no device time")
-        return
-    kern_ms = sum(r[1] for r in rows if r[0].startswith(("raster_", "split_")))
-    log(f"[profile] {iters} iterations: wall {wall_ms:.2f} ms under the "
-        f"profiler, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
-        f"{sum(r[2] for r in rows)} device ops; the compositing kernels "
-        f"{kern_ms / iters:.4f} ms/iter ({kern_ms / busy_ms:.1%} of the "
-        f"device time)")
-    for key, dev_ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
-        log(f"[profile]   {dev_ms / iters:8.4f} ms/iter  {dev_ms / busy_ms:6.1%}  "
-            f"x{count / iters:g}/iter  {key[:90]}")
-
-
-KERNEL_NAMES = ("B1", "B2", "B3a", "B3b", "B3c", "B3d", "B4")
+KERNEL_NAMES = ("B1", "B2", "B3a", "B3b", "B3c", "B3d", "B4", "P1", "P2",
+                "P3", "P4")
 
 
 def reset_launches():
@@ -922,6 +959,7 @@ def phase_offline(dev, frames=10, iters=500, size=(1200, 680)):
     config as it is, but for the cuts printed."""
     import torch
 
+    from splatam_torch.bench.profile import profile_block
     from splatam_torch.gs.offline import offline_splatting
     from splatam_torch.render.binning import RasterConfig
 
@@ -993,6 +1031,7 @@ def phase_post_opt(dev, slam_state, frames, iters=300, size=(1200, 680)):
     ``post_splatam_opt`` with the Replica config, cut as printed."""
     import torch
 
+    from splatam_torch.bench.profile import profile_block
     from splatam_torch.gs.post_opt import post_splatam_opt
     from splatam_torch.render.binning import RasterConfig
     from splatam_torch.slam.pipeline import SlamState
@@ -1057,6 +1096,7 @@ def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
     call site."""
     import torch
 
+    from splatam_torch.bench.profile import profile_block
     from splatam_torch.data.synthetic import SyntheticDataset
     from splatam_torch.eval.ate import evaluate_ate, trajectory_from_params
     from splatam_torch.realtime import GainConfig, ReplaySource, realtime_slam
@@ -1168,20 +1208,284 @@ def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
     return result, launches
 
 
-SOURCES = {
-    "B1": ("raster_fwd", "raster_fwd.cu", 567),
-    "B2": ("raster_bwd", "raster_bwd.cu", 962),
-    "B3a": ("raster_split_int_fwd", "raster_split_fwd.cu", 1590),
-    "B3b": ("raster_split_tail_fwd", "raster_split_fwd.cu", 1036),
-    "B3c": ("raster_split_int_bwd", "raster_split_bwd.cu", 990),
-    "B3d": ("raster_split_tail_bwd", "raster_split_bwd.cu", 1196),
-    "B4": ("raster_fisher", "raster_fisher.cu", 1495),
+BENCH_ITERS = 10  # bench.py's chained iterations, binning frozen for all 10
+# The probes' iterations per case (the TPU tools' defaults) and P2's reps:
+# the tool's 0 and 16, and 256, where the f32 chains leave the HBM bound.
+PROBE_ITERS = {"P1": 30, "P2": 20, "P3": 20, "P4": 20}
+P2_REPS = (0, 16, 256)
+P2_CHECK_REPS = 3  # at 16 the mul_add, exp and roll chains run to overflow,
+# and an FMA's single rounding against two then grows 2x per rep
+P4_TOL = 1e-4  # of the largest magnitude: 8000 blocks' sums in atomic order
+# P3: every case at these reps, each output held to P3_TOL of its own
+# largest magnitude with no absolute floor (every pass scales by 1e-3, so
+# the mxu outputs are tiny). mxu at reps 1 holds one pass alone, where a
+# wrong triangle or a lost bf16 term is ~1e-3 of scale; in chain and dual
+# the FMA steps after each pass damp its errors ~100x, so mxu carries the
+# pass's check.
+P3_CHECK_REPS = (0, 1, 4)
+P3_TOL = 1e-4
+
+
+def phase_bench(dev, bench_size, rng, errs):
+    """``[bench]``: B1-B3d at the benchmark's chunk (256) on its own trimmed
+    streams against their plain versions; then ``python -m
+    splatam_torch.bench`` (split, then aligned) as the main path, with
+    exact launch counts; then each run under the profiler."""
+    import dataclasses
+
+    import torch
+
+    from splatam_torch.bench.__main__ import main as bench_main
+    from splatam_torch.bench.profile import profile_block
+    from splatam_torch.bench.scene import setup
+
+    n, w, h = bench_size
+    prog = setup(None, n=n, w=w, h=h, device=dev)
+    aligned = dataclasses.replace(
+        prog, cfg=dataclasses.replace(prog.cfg, layout="aligned"))
+    attrs, split_bins, gx = prog.stream_inputs()
+    _, aligned_bins, _ = aligned.stream_inputs()  # the same trim caps
+    al = Setup(attrs, aligned_bins, gx, MAP_FEATS, prog.cfg.chunk)
+    sp = Setup(attrs, split_bins, gx, al.nfeat, prog.cfg.chunk)
+    name = f"bench_c{prog.cfg.chunk}"
+    compare_kernels(name, al, rng, errs)
+    compare_split_kernels(name, sp, al, rng, errs)
+    if split_bins.tmeta.shape[0] == 0:
+        fail("the bench's split stream has no tail chunk: B3b/B3d would not "
+             "launch and the counts below would not hold")
+    del prog, aligned, attrs, split_bins, aligned_bins, al, sp
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    runs = {layout: bench_main(["--n", str(n), "--w", str(w), "--h", str(h),
+                                layout])
+            for layout in ("split", "aligned")}
+    launches = read_launches()
+    expect = {k: 0 for k in KERNEL_NAMES}
+    for layout in runs:  # the trim probe's forward, a warm-up run, a timed run
+        for k, v in expected_launches(layout, 1 + 2 * BENCH_ITERS,
+                                      2 * BENCH_ITERS).items():
+            expect[k] += v
+    check_launches("bench", launches, expect)
+    for layout, r in runs.items():
+        prog = r["program"]
+        if not math.isfinite(r["loss"]):
+            fail(f"bench {layout}: the loss is not finite")
+        log(f"[bench] {layout}: rasterizer_fwd_bwd_throughput {r['mpix_s']} "
+            f"Mpix/s, {r['ms_per_iter']} ms per iteration, "
+            f"{prog.num_kept} instances after the trim "
+            f"({prog.num_kept_untrimmed} before), loss {r['loss']}")
+        log(f"[bench] profile of one run of {prog.iters} iterations ({layout})")
+        profile_block(prog.run, prog.iters)
+    return {k: (r["ms_per_iter"], r["mpix_s"]) for k, r in runs.items()}, launches
+
+
+def tri_nnz(chunk):
+    """Non-zeros of a triangular 0/1 (chunk, chunk) matrix."""
+    return chunk * (chunk + 1) // 2
+
+
+def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
+                 p4_steps=8000):
+    """``[probes]``: P1-P4 each against its plain version at the tools'
+    sizes (P1 on the bench's aligned stream), then each probe's run as the
+    main path (exact launch counts), its tables, and the rates against the
+    card's peaks. Returns the probes' JSON entries and launches."""
+    import torch
+
+    from splatam_torch.bench import (ilp_probe, kernel_ablate, step_overhead,
+                                     vpu_probe)
+    from splatam_torch.bench.scene import setup
+    from splatam_torch.render import raster
+
+    n, w, h = bench_size
+    gen = torch.Generator(device=dev).manual_seed(2)
+    entries = {}
+
+    # P1: every stage on the bench's aligned stream
+    prog = setup("aligned", n=n, w=w, h=h, device=dev)
+    attrs, binned, gx = prog.stream_inputs()
+    x = kernel_ablate.ablation_inputs(attrs, binned, gx, prog.cfg.chunk)
+    e1 = 0.0
+    for stage in kernel_ablate.STAGES:
+        got = kernel_ablate.ablate_cuda(stage, x)
+        torch.cuda.synchronize()
+        ref = kernel_ablate.ablate_plain(stage, x)
+        if stage == "full":
+            err, scale = check_grad("P1 full vs plain B2", got, ref)
+            b2 = raster.raster_bwd_cuda(attrs, binned.sorted_gid, binned.ranges,
+                                        gx, x.chunk, x.color, x.aux,
+                                        x.g_color, x.g_aux, x.nfeat, False)
+            torch.cuda.synchronize()
+            err_b2, _ = check_grad("P1 full vs B2", got, b2)
+            log(f"[probes] P1 full: vs plain B2 {err:.3g}, vs B2 {err_b2:.3g} "
+                f"(scale {scale:.3g}, limit {GRAD_TOL:g} of scale)")
+        else:
+            err = check_close(f"P1 {stage}", got, ref, FWD_ATOL)
+            log(f"[probes] P1 {stage}: max err {err:.3g} (scale "
+                f"{float(ref.abs().max()):.3g})")
+        e1 = max(e1, err)
+    p1_plain = cuda_ms(lambda: kernel_ablate.ablate_plain("full", x), 2, warmup=0)
+    al = Setup(attrs, binned, gx, MAP_FEATS, x.chunk)
+    _, _, evaluated = raster.raster_fwd_plain(*al.args, False)
+    _, p1_bound, pairs = kernel_bounds(al, evaluated, x.nfeat)
+    del prog, attrs, binned, x, al, evaluated
+    torch.cuda.empty_cache()
+
+    # P2: every op and dtype, at the tool's size
+    shape = (256, p2_steps * vpu_probe.CHUNK)
+    e2 = 0.0
+    for dname, ops in vpu_probe.CASES:
+        dt = vpu_probe.DTYPES[dname]
+        x = (torch.rand(shape, generator=gen, device=dev) * 0.6 + 0.2).to(dt)
+        for op in ops:
+            got = vpu_probe.ops_cuda(x, op, P2_CHECK_REPS).float()
+            torch.cuda.synchronize()
+            ref = vpu_probe.ops_plain(x, op, P2_CHECK_REPS).float()
+            if dname == "bfloat16":  # both round after every op
+                check_equal(f"P2 {dname} {op}", got, ref)
+                err = 0.0
+            else:
+                err = check_close(f"P2 {dname} {op}", got, ref, FWD_ATOL)
+            e2 = max(e2, err)
+        del x
+    x06 = torch.full(shape, 0.6, device=dev)
+    p2_plain = cuda_ms(lambda: vpu_probe.ops_plain(x06, "mul_add", 16), 2,
+                       warmup=0)
+    del x06
+    log(f"[probes] P2: every op and dtype at reps {P2_CHECK_REPS} within "
+        f"{FWD_ATOL:g} + {FWD_RTOL:g} rel (f32), exact (bf16); max err {e2:.3g}")
+
+    # P3: every case at reps 0, 1 and 4
+    a = torch.rand((16, p3_steps * 128), generator=gen, device=dev)
+    b = torch.rand((16, p3_steps * 128), generator=gen, device=dev)
+    e3 = 0.0
+    for case in ilp_probe.CASES:
+        for reps in P3_CHECK_REPS:
+            ga, gb = ilp_probe.ilp_cuda(a, b, case, reps)
+            torch.cuda.synchronize()
+            ra, rb = ilp_probe.ilp_plain(a, b, case, reps)
+            rel = []
+            for tag, got, ref in (("a", ga, ra), ("b", gb, rb)):
+                err, scale = check_scaled(f"P3 {case} {reps} {tag}", got, ref,
+                                          P3_TOL)
+                e3 = max(e3, err)
+                rel.append(f"{tag} {err:.3g} of {scale:.3g}")
+            log(f"[probes] P3 {case} reps {reps}: max err {', '.join(rel)}")
+    p3_plain = cuda_ms(lambda: ilp_probe.ilp_plain(a, b, "chain", 4), 2,
+                       warmup=0)
+    del a, b
+    log(f"[probes] P3: every case at reps {P3_CHECK_REPS} within {P3_TOL:g} "
+        f"of each output's largest magnitude")
+
+    # P4: every body, permuted index table
+    stream, blk = step_overhead.inputs(p4_steps, dev)
+    e4 = 0.0
+    for body in step_overhead.BODIES:
+        got = step_overhead.step_cuda(stream, blk, body)
+        torch.cuda.synchronize()
+        ref = step_overhead.step_plain(stream, blk, body)
+        err = max_err(got, ref)
+        scale = float(ref.abs().max())
+        if err > P4_TOL * scale and err > 0:
+            fail(f"P4 {body}: max err {err:.3g} against scale {scale:.3g}")
+        log(f"[probes] P4 {body}: max err {err:.3g} (scale {scale:.3g}, "
+            f"limit {P4_TOL:g} of scale)")
+        e4 = max(e4, err)
+    p4_plain = cuda_ms(lambda: step_overhead.step_plain(stream, blk, "mxu"), 2,
+                       warmup=0)
+    del stream, blk
+    torch.cuda.empty_cache()
+
+    # the main path: each probe's run, at the tools' defaults
+    reset_launches()
+    p1 = kernel_ablate.run(n, w, h, iters=PROBE_ITERS["P1"], device=dev)
+    p2 = vpu_probe.run(p2_steps, PROBE_ITERS["P2"], P2_REPS, device=dev)
+    p3 = ilp_probe.run(p3_steps, 4, PROBE_ITERS["P3"], device=dev)
+    p4 = step_overhead.run(p4_steps, PROBE_ITERS["P4"], device=dev)
+    launches = read_launches()
+    expect = {k: 0 for k in KERNEL_NAMES}
+    expect["B1"] = 2  # the bench setup's trim probe, the ablation's forward
+    nstages = len(kernel_ablate.STAGES)
+    expect["P1"] = nstages * (1 + PROBE_ITERS["P1"])
+    expect["P2"] = (sum(len(ops) for _, ops in vpu_probe.CASES) * len(P2_REPS)
+                    * (1 + PROBE_ITERS["P2"]))
+    expect["P3"] = len(ilp_probe.CASES) * 2 * (1 + PROBE_ITERS["P3"])
+    expect["P4"] = len(step_overhead.BODIES) * (1 + PROBE_ITERS["P4"])
+    check_launches("probes", launches, expect)
+
+    # rates against the card's peaks
+    elems = 256 * 128  # one op over one (256, 128) block: P2's, P3's, P4's
+    fma_elem_s = {"float32": F32_PEAK_FLOPS / 2, "bfloat16": BF16X2_PEAK_FLOPS / 2}
+    for dname, ops in vpu_probe.CASES:
+        for op in ops:
+            lo, hi = P2_REPS[1], P2_REPS[2]
+            ns = (p2[(dname, op, hi)] - p2[(dname, op, lo)]) * 1e6 / p2_steps / (hi - lo)
+            rate = elems / ns * 1e9  # element-ops per second
+            vs = (f"{rate / SFU_OPS_S:.2f}x the SFU rate" if op in
+                  ("exp", "log", "log1p") else
+                  f"{rate / fma_elem_s[dname]:.1%} of the {dname} FMA rate")
+            log(f"[probes] P2 rate {dname:8s} {op:7s}: {rate / 1e12:.3f} T "
+                f"element-ops/s at reps {lo}->{hi} ({vs})")
+    steps_ns = {k: v * 1e6 / p3_steps for k, v in p3.items()}
+    vpu_ns = steps_ns[("vpu", 4)] - steps_ns[("vpu", 0)]
+    mxu_ns = steps_ns[("mxu", 4)] - steps_ns[("mxu", 0)]
+    vpu_flops = elems * 8 * 4 * 3  # x * x * -0.5 + 0.6: a mul and an FMA
+    pass_flops = 2 * 256 * tri_nnz(128) * 2  # two terms, U's non-zeros
+    log(f"[probes] P3 rate: vpu {vpu_flops / vpu_ns / 1e3:.2f} TFLOP/s "
+        f"({vpu_flops / vpu_ns * 1e9 / F32_PEAK_FLOPS:.1%} of f32 peak); a "
+        f"two-term pass {mxu_ns / 4:.2f} ns per block, "
+        f"{pass_flops * 4 / mxu_ns / 1e3:.1f} TFLOP/s on U's non-zeros "
+        f"({pass_flops * 4 / mxu_ns * 1e9 / BF16_TC_FLOPS:.1%} of the bf16 "
+        f"tensor-core peak)")
+    for body in step_overhead.BODIES:
+        log(f"[probes] P4 {body}: {p4[body] * 1e6 / p4_steps:.2f} ns per block")
+
+    # bounds of the entries' runs: P1 full (B2), P2 f32 mul_add at reps 16,
+    # P3 chain at reps 4, P4 mxu
+    p2_n = 256 * p2_steps * vpu_probe.CHUNK
+    p3_blocks = p3_steps
+    entries["P1"] = dict(
+        ms=p1["full"], plain_ms=p1_plain, bound=p1_bound, err=e1,
+        stages={s: p1[s] for s in kernel_ablate.STAGES})
+    entries["P2"] = dict(ms=p2[("float32", "mul_add", 16)], plain_ms=p2_plain,
+                         bound=bound_ms(2 * p2_n * 4, 2 * 16 * p2_n), err=e2)
+    entries["P3"] = dict(
+        ms=p3[("chain", 4)], plain_ms=p3_plain, err=e3,
+        bound=bound_ms(4 * 16 * p3_steps * 128 * 4,
+                          p3_blocks * elems * 4 * (8 * 3 + 2),
+                          p3_blocks * 4 * pass_flops))
+    entries["P4"] = dict(
+        ms=p4["mxu"], plain_ms=p4_plain, err=e4,
+        bound=bound_ms(p4_steps * (16 * 128 * 4 + 4) + elems * 4,
+                          p4_steps * elems, p4_steps * 256 * tri_nnz(128) * 2))
+    log(f"[probes] P1 bound: B2's on this stream, {pairs} pairs")
+    for k, e in entries.items():
+        errs[k] = e["err"]
+        log(f"[probes] {k}: {e['ms']:.4f} ms, plain {e['plain_ms']:.2f} ms, "
+            f"bound {e['bound'][0]:.4f} ms ({e['bound'][1]})")
+    return entries, launches
+
+
+PALLAS = "splatam_tpu/render/pallas_raster.py"
+SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
+    "B1": ("raster_fwd", "raster_fwd.cu", f"{PALLAS}:567"),
+    "B2": ("raster_bwd", "raster_bwd.cu", f"{PALLAS}:962"),
+    "B3a": ("raster_split_int_fwd", "raster_split_fwd.cu", f"{PALLAS}:1590"),
+    "B3b": ("raster_split_tail_fwd", "raster_split_fwd.cu", f"{PALLAS}:1036"),
+    "B3c": ("raster_split_int_bwd", "raster_split_bwd.cu", f"{PALLAS}:990"),
+    "B3d": ("raster_split_tail_bwd", "raster_split_bwd.cu", f"{PALLAS}:1196"),
+    "B4": ("raster_fisher", "raster_fisher.cu", f"{PALLAS}:1495"),
+    "P1": ("probe_ablate", "probe_ablate.cu", "tools/kernel_ablate.py:307"),
+    "P2": ("probe_ops", "probe_ops.cu", "tools/vpu_probe.py:56"),
+    "P3": ("probe_ilp", "probe_ilp.cu", "tools/ilp_probe.py:99"),
+    "P4": ("probe_step", "probe_step.cu", "tools/step_overhead.py:103"),
 }
 
 
 def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
-          offline=None, post=None, realtime=None):
-    """Phases 2-7 on ``dev``. Returns (the kernels' JSON entries, a
+          offline=None, post=None, realtime=None, probes=None):
+    """Phases 2-9 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
 
@@ -1195,6 +1499,15 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     iteration = {layout: phase_iteration(dev, layout, bench_size=bench_size)
                  for layout in ("aligned", "split")}
     log(f"[timing] done ({time.time() - t:.1f} s)")
+    t = time.time()
+    bench, bench_launches = phase_bench(dev, bench_size,
+                                        np.random.default_rng(3), errs)
+    log(f"[bench] phase in {time.time() - t:.1f} s")
+    t = time.time()
+    probe_entries, probe_launches = phase_probes(dev, bench_size, errs,
+                                                 **(probes or {}))
+    log(f"[probes] phase in {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
     t = time.time()
     slam, launches, slam_state = phase_slam(frames, dev, **(slam_size or {}))
     log(f"[slam] {frames} frames in {time.time() - t:.1f} s")
@@ -1210,25 +1523,31 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     t = time.time()
     rt, rt_launches = phase_realtime(dev, **(realtime or {}))
     log(f"[realtime] phase in {time.time() - t:.1f} s")
-    # the main paths' launches: SLAM, offline training, refinement, realtime
+    # the main paths' launches: the bench, the probes, SLAM, offline
+    # training, refinement, realtime
     for k in KERNEL_NAMES:
-        launches[k] += off_launches[k] + post_launches[k] + rt_launches[k]
+        launches[k] += (bench_launches[k] + probe_launches[k] + off_launches[k]
+                        + post_launches[k] + rt_launches[k])
+    for k, e in probe_entries.items():
+        times[k], bounds[k] = (e["ms"], e["plain_ms"]), e["bound"]
 
-    kernels = [
-        {
+    kernels = []
+    for k in KERNEL_NAMES:
+        kernels.append({
             "name": SOURCES[k][0], "route": "cuda",
             "source": f"splatam_torch/render/csrc/{SOURCES[k][1]}",
-            "replaces": f"splatam_tpu/render/pallas_raster.py:{SOURCES[k][2]}",
+            "replaces": SOURCES[k][2],
             "launches": launches[k], "max_abs_err": errs[k],
             "ms": times[k][0], "plain_ms": times[k][1],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": None,
-        }
-        for k in KERNEL_NAMES
-    ]
+        })
+    kernels[KERNEL_NAMES.index("P1")]["stages_ms"] = probe_entries["P1"]["stages"]
     summary = (
-        "iteration " + ", ".join(f"{lay} {ms:.3f} ms ({mp:.2f} Mpix/s)"
-                                 for lay, (ms, mp) in iteration.items())
+        "bench " + ", ".join(f"{lay} {ms:.3f} ms ({mp:.3f} Mpix/s)"
+                             for lay, (ms, mp) in bench.items())
+        + "; map_step c128 " + ", ".join(f"{lay} {ms:.3f} ms ({mp:.2f} Mpix/s)"
+                                         for lay, (ms, mp) in iteration.items())
         + f"; SLAM {slam['s_per_frame']} s/frame; offline "
         f"{off['ms_per_iter']:.2f} ms/iteration, PSNR {off['psnr']:.2f} dB; "
         f"refinement {post_['ms_per_iter']:.2f} ms/iteration, PSNR "

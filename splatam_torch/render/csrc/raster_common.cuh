@@ -1,7 +1,7 @@
 // Shared per-(pixel, instance) arithmetic of the forward and backward
 // compositing kernels: aligned layout (raster_fwd.cu B1, raster_bwd.cu B2)
 // and split layout (raster_split_fwd.cu B3a/B3b, raster_split_bwd.cu
-// B3c/B3d).
+// B3c/B3d); also of B2's stage-ablation probe (probe_ablate.cu P1).
 //
 // Every operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
 // ...), which the compiler never contracts into an FMA. So both kernels
@@ -143,17 +143,57 @@ __device__ __forceinline__ void grad_inputs(const float* color,
   gdep = g_aux[base];
 }
 
-// The analytic backward of one (pixel, staged instance j) pair, replaying
-// the forward's recursion (advances T, dead and the running prefix accw of
-// w * gc):
+// The analytic backward of one (pixel, staged instance j) pair up to
+// dpower, replaying the forward's recursion (advances dead and the running
+// prefix accw of w * gc; the caller advances T to `test`):
 //   S      = ga - prefix(w gc)
 //   dalpha = T_before gc - S / (1 - alpha)
 //   dpower = dalpha alpha, only where alpha is neither capped nor floored
 //            and the power was not clamped
-//   d/dopacity = dalpha exp(power); d/ddepth at the median crossing;
-//   d/dx, d/dy, d/dconic from dpower; features: w dL/dcolor.
-// Fills v (gradient rows of the instance from this pixel, zero where the
-// pair adds nothing) and returns whether the pair contributed.
+//   d/dopacity = dalpha exp(power).
+// Returns whether the pair contributes; false where the pixel is dead,
+// alpha is zero, or the pixel dies at this instance.
+struct PairGrad {
+  Pair q;
+  float test;    // T after the pair
+  float w;       // alpha T
+  float dop;     // d/dopacity
+  float dpower;  // d/dpower
+};
+
+__device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
+                                            float px, float py,
+                                            const float* gcol, float ga,
+                                            float T, bool& dead, float& accw,
+                                            PairGrad& g) {
+  if (dead) return false;
+  g.q = eval_pair(s, j, chunk, px, py);
+  if (!(g.q.alpha > 0.0f)) return false;
+  g.test = __fmul_rn(T, __fsub_rn(1.0f, g.q.alpha));
+  if (g.test < T_STOP) {
+    dead = true;
+    return false;
+  }
+  float gc = 0.0f;
+#pragma unroll
+  for (int f = 0; f < NFEAT; ++f)
+    gc = __fadd_rn(gc, __fmul_rn(gcol[f], s[(ROW_FEAT0 + f) * chunk + j]));
+  g.w = __fmul_rn(g.q.alpha, T);
+  accw = __fadd_rn(accw, __fmul_rn(g.w, gc));
+  const float suffix = __fsub_rn(ga, accw);
+  const float dalpha = __fsub_rn(
+      __fmul_rn(T, gc), __fdiv_rn(suffix, __fsub_rn(1.0f, g.q.alpha)));
+  g.dop = g.q.raw < ALPHA_CAP ? __fmul_rn(dalpha, g.q.epow) : 0.0f;
+  g.dpower =
+      g.q.praw <= 0.0f ? __fmul_rn(g.dop, s[ROW_OP * chunk + j]) : 0.0f;
+  return true;
+}
+
+// The whole analytic backward of one pair: pair_dpower, then d/ddepth at
+// the median crossing, d/dx, d/dy, d/dconic from dpower, and the features'
+// w dL/dcolor. Fills v (gradient rows of the instance from this pixel, zero
+// where the pair adds nothing), advances T, and returns whether the pair
+// contributed.
 __device__ __forceinline__ bool bwd_pair(const float* s, int j, int chunk,
                                          float px, float py,
                                          const float* gcol, float ga,
@@ -162,42 +202,26 @@ __device__ __forceinline__ bool bwd_pair(const float* s, int j, int chunk,
                                          bool& dead, float& accw, float* v) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) v[r] = 0.0f;
-  if (dead) return false;
-  const Pair q = eval_pair(s, j, chunk, px, py);
-  if (!(q.alpha > 0.0f)) return false;
-  const float test = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
-  if (test < T_STOP) {
-    dead = true;
+  PairGrad g;
+  if (!pair_dpower(s, j, chunk, px, py, gcol, ga, T, dead, accw, g))
     return false;
-  }
-  float gc = 0.0f;
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f)
-    gc = __fadd_rn(gc, __fmul_rn(gcol[f], s[(ROW_FEAT0 + f) * chunk + j]));
-  const float w = __fmul_rn(q.alpha, T);
-  accw = __fadd_rn(accw, __fmul_rn(w, gc));
-  const float suffix = __fsub_rn(ga, accw);
-  const float dalpha = __fsub_rn(
-      __fmul_rn(T, gc), __fdiv_rn(suffix, __fsub_rn(1.0f, q.alpha)));
-  const float dop = q.raw < ALPHA_CAP ? __fmul_rn(dalpha, q.epow) : 0.0f;
-  const float dpower =
-      q.praw <= 0.0f ? __fmul_rn(dop, s[ROW_OP * chunk + j]) : 0.0f;
+  const Pair& q = g.q;
   const float a = s[ROW_CA * chunk + j];
   const float bb = s[ROW_CB * chunk + j];
   const float c = s[ROW_CC * chunk + j];
-  v[ROW_X] = -__fmul_rn(dpower, __fadd_rn(__fmul_rn(a, q.dx),
-                                          __fmul_rn(bb, q.dy)));
-  v[ROW_Y] = -__fmul_rn(dpower, __fadd_rn(__fmul_rn(c, q.dy),
-                                          __fmul_rn(bb, q.dx)));
-  v[ROW_CA] = __fmul_rn(dpower, __fmul_rn(-0.5f, __fmul_rn(q.dx, q.dx)));
-  v[ROW_CB] = -__fmul_rn(dpower, __fmul_rn(q.dx, q.dy));
-  v[ROW_CC] = __fmul_rn(dpower, __fmul_rn(-0.5f, __fmul_rn(q.dy, q.dy)));
-  v[ROW_OP] = dop;
-  if (carry_depth && T > 0.5f && test < 0.5f) v[ROW_DEPTH] = gdep;
+  v[ROW_X] = -__fmul_rn(g.dpower, __fadd_rn(__fmul_rn(a, q.dx),
+                                            __fmul_rn(bb, q.dy)));
+  v[ROW_Y] = -__fmul_rn(g.dpower, __fadd_rn(__fmul_rn(c, q.dy),
+                                            __fmul_rn(bb, q.dx)));
+  v[ROW_CA] = __fmul_rn(g.dpower, __fmul_rn(-0.5f, __fmul_rn(q.dx, q.dx)));
+  v[ROW_CB] = -__fmul_rn(g.dpower, __fmul_rn(q.dx, q.dy));
+  v[ROW_CC] = __fmul_rn(g.dpower, __fmul_rn(-0.5f, __fmul_rn(q.dy, q.dy)));
+  v[ROW_OP] = g.dop;
+  if (carry_depth && T > 0.5f && g.test < 0.5f) v[ROW_DEPTH] = gdep;
 #pragma unroll
   for (int f = 0; f < NFEAT; ++f)
-    if (f < nfeat) v[ROW_FEAT0 + f] = __fmul_rn(w, gcol[f]);
-  T = test;
+    if (f < nfeat) v[ROW_FEAT0 + f] = __fmul_rn(g.w, gcol[f]);
+  T = g.test;
   return true;
 }
 

@@ -1,5 +1,6 @@
 """Tile compositing: the kernels B1/B2 and B3a-d, their plain versions,
-and autograd; and the Fisher moments kernel B4.
+and autograd; the Fisher moments kernel B4; and the build and launch
+counters of every kernel, the measurement probes P1-P4 included.
 
 Counterpart of ``splatam_tpu/render/pallas_raster.py``. The differentiable
 boundary is the per-gaussian (N, 16) attribute table (``pack_attrs``), as in
@@ -62,7 +63,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("raster_fwd", "raster_bwd", "raster_split_fwd",
-                  "raster_split_bwd", "raster_fisher")
+                  "raster_split_bwd", "raster_fisher",
+                  # the measurement probes P1-P4 (splatam_torch/bench/)
+                  "probe_ablate", "probe_ops", "probe_ilp", "probe_step")
 # per-tile carries of the split layout, channel-major (T, rows, NPIX)
 FWD_CARRY_ROWS = 3  # signed T (negative = dead), median-depth sum, sat cand
 BWD_CARRY_ROWS = 2  # signed T, running prefix of w * gc
@@ -218,10 +221,22 @@ SPLIT_TAIL_BWD_KERNEL = CudaKernel("raster_split_bwd",
 # raster_fisher(attrs, gid, ranges, num_tiles, grid_x, chunk, color, seed,
 #               mom, stream)
 FISHER_KERNEL = CudaKernel("raster_fisher", "raster_fisher", 3, 3, 3)
+# The probes' wrappers and plain versions live in splatam_torch/bench/.
+# probe_ablate(attrs, gid, ranges, stage, num_tiles, grid_x, chunk, nfeat,
+#              carry_depth, color, aux, g_color, g_aux, pix, grad, stream)
+ABLATE_KERNEL = CudaKernel("probe_ablate", "probe_ablate", 3, 6, 6)
+# probe_ops(x, op, bf16, reps, steps, chunk, out, stream)
+OPS_KERNEL = CudaKernel("probe_ops", "probe_ops", 1, 5, 1)
+# probe_ilp(a, b, case, reps, steps, oa, ob, stream)
+ILP_KERNEL = CudaKernel("probe_ilp", "probe_ilp", 2, 3, 2)
+# probe_step(stream, blk, body, steps, out, stream)
+STEP_KERNEL = CudaKernel("probe_step", "probe_step", 2, 2, 1)
 KERNELS = {
     "B1": FWD_KERNEL, "B2": BWD_KERNEL, "B3a": SPLIT_INT_FWD_KERNEL,
     "B3b": SPLIT_TAIL_FWD_KERNEL, "B3c": SPLIT_INT_BWD_KERNEL,
     "B3d": SPLIT_TAIL_BWD_KERNEL, "B4": FISHER_KERNEL,
+    "P1": ABLATE_KERNEL, "P2": OPS_KERNEL, "P3": ILP_KERNEL,
+    "P4": STEP_KERNEL,
 }
 
 

@@ -14,7 +14,9 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "splatam_tpu")
+# the JAX package and its harness (bench.py, tools/): the port keeps its own
+# copies of what it needs from them
+FORBIDDEN = ("jax", "jaxlib", "splatam_tpu", "bench", "tools")
 
 
 def _port_sources():
@@ -31,6 +33,9 @@ def test_import_leaves_jax_out():
         "import splatam_torch.fisher, splatam_torch.realtime\n"
         "import splatam_torch.realtime.ros_bridge, splatam_torch.run.realtime\n"
         "import splatam_torch.utils.dump\n"
+        "import splatam_torch.bench.__main__, splatam_torch.bench.profile\n"
+        "import splatam_torch.bench.kernel_ablate, splatam_torch.bench.vpu_probe\n"
+        "import splatam_torch.bench.ilp_probe, splatam_torch.bench.step_overhead\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -66,6 +71,10 @@ def _entry_points():
     from splatam_torch.utils.checkpoint import load_params
     from splatam_torch.realtime import realtime_slam
     from splatam_torch.run import realtime
+    from splatam_torch.bench import (ilp_probe, kernel_ablate, step_overhead,
+                                     vpu_probe)
+    from splatam_torch.bench.__main__ import main as bench_main
+    from splatam_torch.bench.scene import setup as bench_setup
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -85,13 +94,21 @@ def _entry_points():
         "load_params": lambda: load_params("params.npz"),
         "realtime_slam": lambda: realtime_slam({}, None),
         "realtime.main": lambda: realtime.main(["config.py"]),
+        "bench.setup": lambda: bench_setup(n=10, w=16, h=16),
+        "bench.main": lambda: bench_main(["--n", "10", "--w", "16", "--h", "16"]),
+        "kernel_ablate.main": lambda: kernel_ablate.main(["--n", "10"]),
+        "vpu_probe.main": lambda: vpu_probe.main(["--steps", "1"]),
+        "ilp_probe.main": lambda: ilp_probe.main(["--steps", "1"]),
+        "step_overhead.main": lambda: step_overhead.main(["--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["rasterize_tiled", "rgbd_slam", "synthetic_slam.main", "setup_camera",
              "offline_splatting", "post_splatam_opt", "load_params",
-             "realtime_slam", "realtime.main"]
+             "realtime_slam", "realtime.main", "bench.setup", "bench.main",
+             "kernel_ablate.main", "vpu_probe.main", "ilp_probe.main",
+             "step_overhead.main"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it
