@@ -13,9 +13,13 @@ Phases, each of which must pass:
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
-   ``tests/goldens``), a saturating scene, an empty scene, and ``bench.py``'s
-   scene (200k gaussians at 1200x680) with the fused 6-channel mapping
-   features; B3a-d also on an interior-only scene. Each split kernel gets
+   ``tests/goldens``), a saturating scene, an empty scene, the far-mean
+   and contention scene (``far_contention``: large gaussians whose means
+   lie 100-600 px off the tiles they cover, one covering every tile, a
+   saturating stack), and ``bench.py``'s scene (200k gaussians at
+   1200x680) with the fused 6-channel mapping features; B3a-d also on an
+   interior-only scene. B2 and B3c also at chunk 256 and 512 (past 48 KB
+   of shared memory) on every scene. Each split kernel gets
    the plain version's inputs (carries included), and the composed split
    render and its gradients are held against B1/B2 on the same scene.
    Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5 against
@@ -97,6 +101,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 128
 FWD_ATOL, FWD_RTOL, FINAL_T_ATOL = 1e-5, 1e-4, 2e-5
 GRAD_TOL = 5e-5  # of the largest gradient magnitude (tests/test_pallas.py)
+# B2 and B3c are also held to their plain versions at these staged batches
+# (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's launch)
+BWD_CHUNKS = (256, 512)
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W limit): f32
 # outside the tensor cores, and HBM bandwidth
 F32_PEAK_FLOPS = 67e12
@@ -166,11 +173,41 @@ def golden_scenes():
     }
 
 
+# screen means of far_contention's large gaussians: 100-600 px outside the
+# 64 x 48 image, which each still covers (tests/test_torch_raster.py)
+FAR_UV = np.array([[-100, 10], [-250, 40], [-400, 20], [-600, 30], [214, 5],
+                   [414, 45], [20, -120], [50, -300], [10, 248], [40, 548]],
+                  np.float64)
+
+
 def small_scene(kind, seed=3):
-    """The saturating and empty scenes of tests/test_torch_raster.py, and
-    the interior-only scene of tests/test_pallas.py."""
+    """The saturating, empty and far_contention scenes of
+    tests/test_torch_raster.py, and the interior-only scene of
+    tests/test_pallas.py. far_contention stresses B2's and B3c's moment
+    form: FAR_UV's gaussians in front (their tile sums recombine from far
+    off-tile means), one in front of them all covering every tile (every
+    block adds to its row), and a stack of opaque 3-8 px gaussians that
+    saturates the two top-left tiles."""
     rng = np.random.default_rng(seed)
-    if kind == "saturating":
+    if kind == "far_contention":
+        n, w, h = 400, 64, 48
+        f, cx, cy = w * 1.2, w / 2, h / 2
+        z = rng.uniform(0.5, 6.0, n)
+        means = np.stack([(rng.uniform(0, 32, n) - cx) * z / f,
+                          (rng.uniform(0, 16, n) - cy) * z / f, z], -1)
+        scales = np.repeat((rng.uniform(3, 8, n) * z / f)[:, None], 3, 1)
+        opac = np.full(n, 0.95)
+        k = len(FAR_UV)
+        out = np.maximum(np.maximum(-FAR_UV[:, 0], FAR_UV[:, 0] - w),
+                         np.maximum(-FAR_UV[:, 1], FAR_UV[:, 1] - h))
+        zf = rng.uniform(1.0, 1.3, k)
+        means[:k] = np.stack([(FAR_UV[:, 0] - cx) * zf / f,
+                              (FAR_UV[:, 1] - cy) * zf / f, zf], -1)
+        scales[:k] = ((0.45 * out + 20) * zf / f)[:, None]
+        opac[:k] = rng.uniform(0.3, 0.5, k)
+        means[k], scales[k], opac[k] = [0.0, 0.0, 0.45], 40 * 0.45 / f, 0.3
+        quats = np.tile([1.0, 0, 0, 0], (n, 1))
+    elif kind == "saturating":
         n, w, h = 400, 64, 48
         means = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.7, 0.7, n),
                           rng.uniform(0.5, 6.0, n)], -1)
@@ -308,7 +345,8 @@ class Setup:
                 self.grid_x, self.chunk)
 
 
-def scene_setup(scene, dev, mapping_feats=False, layout="aligned"):
+def scene_setup(scene, dev, mapping_feats=False, layout="aligned",
+                chunk=CHUNK):
     import torch
 
     from splatam_torch.core.losses import depth_silhouette_colors
@@ -328,11 +366,11 @@ def scene_setup(scene, dev, mapping_feats=False, layout="aligned"):
             [t["feats"], depth_silhouette_colors(t["means"], cam.viewmatrix)], -1)
     proj = preprocess(t["means"], t["scales"], normalize(t["quats"]), cam)
     binned = bin_gaussians_csr(proj, cam,
-                               RasterConfig(chunk=CHUNK, layout=layout),
+                               RasterConfig(chunk=chunk, layout=layout),
                                opacities=t["opac"])
     attrs = pack_attrs(proj.means2d, proj.conic, t["opac"], proj.depths,
                        t["feats"])
-    return Setup(attrs, binned, grid_dims(cam)[0], t["feats"].shape[1])
+    return Setup(attrs, binned, grid_dims(cam)[0], t["feats"].shape[1], chunk)
 
 
 def compare_kernels(name, s: Setup, rng, errs):
@@ -575,6 +613,51 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     return out
 
 
+def compare_bwd_chunks(name, scene, dev, rng, errs, mapping_feats=False):
+    """B2 and B3c against their plain versions at the staged batches of
+    BWD_CHUNKS (the split binned at each), in the full and the narrowed
+    setting; both versions get the same forward outputs and cotangents."""
+    import torch
+
+    from splatam_torch.render import raster
+
+    for chunk in BWD_CHUNKS:
+        al = scene_setup(scene, dev, mapping_feats, chunk=chunk)
+        sp = scene_setup(scene, dev, mapping_feats, "split", chunk)
+        b, gx = sp.binned, sp.grid_x
+        for carry, nfeat in ((True, al.nfeat), (False, min(al.nfeat, 4))):
+            tag = f"{name} chunk={chunk} carry_depth={carry}"
+            c, a = raster.raster_fwd_cuda(*al.args, carry)
+            g_color, g_aux = cotangents(c, a, nfeat, carry, rng)
+            g1 = raster.raster_bwd_cuda(*al.args, c, a, g_color, g_aux, nfeat,
+                                        carry)
+            torch.cuda.synchronize()
+            g0 = raster.raster_bwd_plain(*al.args, c, a, g_color, g_aux, nfeat,
+                                         carry)
+            e2, s2 = check_grad(f"B2 {tag}", g1, g0)
+            ci, ai, k = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx,
+                                                         chunk, carry)
+            color, aux = raster.compose_split(
+                b, ci, ai, *raster.raster_split_tail_fwd_cuda(
+                    sp.attrs, b, k, gx, chunk, carry))
+            bargs = (gx, chunk, color, aux, g_color, g_aux, nfeat, carry)
+            g1, bc1 = raster.raster_split_int_bwd_cuda(sp.attrs, b, *bargs)
+            torch.cuda.synchronize()
+            g0, bc0 = raster.raster_split_int_bwd_plain(sp.attrs, b, *bargs)
+            e3, s3 = check_grad(f"B3c {tag}", g1, g0)
+            check_close(f"B3c {tag} carry T", bc1[:, 0], bc0[:, 0],
+                        FINAL_T_ATOL)
+            check_grad(f"B3c {tag} carry prefix", bc1[:, 1], bc0[:, 1])
+            check_equal(f"B3c {tag} carry death", bc1[:, 0] < 0, bc0[:, 0] < 0)
+            errs["B2"] = max(errs["B2"], e2)
+            errs["B3c"] = max(errs["B3c"], e3)
+            log(f"[kernels] {name:12s} chunk={chunk} carry_depth={carry!s:5s} "
+                f"nfeat={nfeat} B2 {e2:.3g}/{s2:.3g} B3c {e3:.3g}/{s3:.3g} "
+                f"(err/scale, limit {GRAD_TOL:g})")
+        del al, sp, b
+        torch.cuda.empty_cache()
+
+
 def check_goldens(name, scene, dev):
     """rasterize_tiled on the card against the frozen dense renders."""
     from splatam_torch.render.binning import RasterConfig
@@ -608,9 +691,10 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
         compare_fisher(name, al, outs[True][0], errs)
         compare_split_kernels(name, scene_setup(scene, dev, layout="split"),
                               al, rng, errs)
+        compare_bwd_chunks(name, scene, dev, rng, errs)
     log("[kernels] golden renders match tests/goldens")
     check_render_fisher("dense_aniso", golden_scenes()["dense_aniso"], dev)
-    for kind in ("saturating", "empty", "interior_only"):
+    for kind in ("saturating", "empty", "interior_only", "far_contention"):
         al = scene_setup(small_scene(kind), dev)
         outs = compare_kernels(kind, al, rng, errs)
         if kind != "interior_only":
@@ -618,6 +702,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
         compare_split_kernels(kind, scene_setup(small_scene(kind), dev,
                                                 layout="split"),
                               al, rng, errs)
+        compare_bwd_chunks(kind, small_scene(kind), dev, rng, errs)
     # the 200k scene as the mapping loss renders it: isotropic scales,
     # sigmoid opacities, 6 fused channels
     from splatam_torch.bench.scene import make_scene
@@ -635,6 +720,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     bench_split = scene_setup(scene, dev, mapping_feats=True, layout="split")
     outs_split = compare_split_kernels("bench_200k", bench_split, bench, rng,
                                        errs)
+    compare_bwd_chunks("bench_200k", scene, dev, rng, errs, mapping_feats=True)
     return errs, (bench, outs), (bench_split, outs_split)
 
 

@@ -72,11 +72,13 @@ ablate_kernel(const float* __restrict__ attrs,
   bool dead = false;
   float accw = 0.0f;  // running prefix of w * gc
 
+  float* s_acc = bwd_acc(s, chunk);
   for (int b = start; b < end; b += chunk) {
     const int n = min(chunk, end - b);
-    __syncthreads();
+    if (STAGE < DMA) __syncthreads();  // later stages end on the exit test
     stage_batch(s, STAGE >= DMA ? s_gid : nullptr, attrs, sorted_gid, b, n,
                 chunk);
+    if (STAGE == FULL) zero_acc(s_acc, chunk);
     __syncthreads();
     if (STAGE <= DMA) {
       const int j = (p / ROWS) % n;
@@ -120,8 +122,10 @@ ablate_kernel(const float* __restrict__ attrs,
         float v[ROWS];
         const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
                                       nfeat, carry_depth, T, dead, accw, v);
-        warp_add_rows(v, contrib, s_gid[j], grad);
+        block_add_rows(v, contrib, j, chunk, s_acc);
       }
+      __syncthreads();
+      flush_rows(s_acc, s_gid, n, chunk, nfeat, carry_depth, grad);
     }
     if (STAGE >= DMA && __syncthreads_count(!dead) == 0) break;
   }
@@ -153,7 +157,9 @@ extern "C" int probe_ablate(const float* attrs, const int* sorted_gid,
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (nfeat < 0 || nfeat > NFEAT) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)chunk * (ROWS * sizeof(float) + sizeof(int));
+  const size_t smem = bwd_smem_bytes(chunk);  // every stage alike: B2's
+  const int rc = allow_smem((const void*)kStages[stage], smem);
+  if (rc != 0) return rc;
   kStages[stage]<<<num_tiles, NPIX, smem, stream>>>(
       attrs, sorted_gid, ranges, grid_x, chunk, nfeat, carry_depth, color,
       aux, g_color, g_aux, pix, grad);

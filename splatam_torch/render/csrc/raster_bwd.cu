@@ -14,15 +14,16 @@
 //   d/dx, d/dy, d/dconic from dpower; features: w dL/dcolor.
 // It replays the forward's arithmetic (raster_common.cuh), so every pixel
 // dies at the same instance and the tile exits at the same batch as in the
-// forward. Each instance's rows are summed over each warp with shuffles and
-// added into the (N, 16) gradient table with atomicAdd, so no per-instance
-// rows reach device memory; instances past a saturated tile's exit add
-// nothing. Sums in atomic order vary from run to run in the last bits.
+// forward. Each instance's rows are reduce-scattered over each warp and
+// summed per staged batch in shared memory (raster_common.cuh's block-level
+// reduction), then flushed into the (N, 16) gradient table with one
+// atomicAdd per non-zero (instance, row), so no per-instance rows reach
+// device memory; instances past a saturated tile's exit add nothing. Sums
+// in atomic order vary from run to run in the last bits.
 //
 // Bound on an H100: the forward's ~20 f32 operations and one exp per
 // (pixel, instance) pair, plus ~50 for the gradient, so compute-bound.
-// Left for later: cp.async/TMA staging, and fewer atomics (a block-level
-// reduction over the 8 warps before one atomicAdd per instance and row).
+// Left for later: cp.async/TMA staging.
 #include "raster_common.cuh"
 
 using namespace splat;
@@ -35,8 +36,9 @@ raster_bwd_kernel(const float* __restrict__ attrs,
                   const float* __restrict__ aux,
                   const float* __restrict__ g_color,
                   const float* __restrict__ g_aux, float* __restrict__ grad) {
-  extern __shared__ float s[];  // ROWS * chunk floats, then chunk gids
+  extern __shared__ float s[];  // staged rows, chunk gids, s_acc
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
+  float* acc = bwd_acc(s, chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
@@ -53,15 +55,18 @@ raster_bwd_kernel(const float* __restrict__ attrs,
 
   for (int b = start; b < end; b += chunk) {
     const int n = min(chunk, end - b);
-    __syncthreads();
     stage_batch(s, s_gid, attrs, sorted_gid, b, n, chunk);
+    zero_acc(acc, chunk);
     __syncthreads();
     for (int j = 0; j < n; ++j) {  // warp-uniform: shuffles need every lane
       float v[ROWS];
       const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
                                     nfeat, carry_depth, T, dead, accw, v);
-      warp_add_rows(v, contrib, s_gid[j], grad);
+      block_add_rows(v, contrib, j, chunk, acc);
     }
+    __syncthreads();
+    flush_rows(acc, s_gid, n, chunk, nfeat, carry_depth, grad);
+    // also keeps the next batch's staging behind this flush
     if (__syncthreads_count(!dead) == 0) break;
   }
 }
@@ -75,7 +80,9 @@ extern "C" int raster_bwd(const float* attrs, const int* sorted_gid,
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (nfeat < 0 || nfeat > NFEAT) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)chunk * (ROWS * sizeof(float) + sizeof(int));
+  const size_t smem = bwd_smem_bytes(chunk);
+  const int rc = allow_smem((const void*)raster_bwd_kernel, smem);
+  if (rc != 0) return rc;
   raster_bwd_kernel<<<num_tiles, NPIX, smem, stream>>>(
       attrs, sorted_gid, ranges, grid_x, chunk, nfeat, carry_depth, color,
       aux, g_color, g_aux, grad);

@@ -22,7 +22,7 @@ constexpr int NPIX = TILE * TILE;  // one thread per pixel of a tile
 constexpr int ROWS = 16;           // attribute rows per gaussian (pack_attrs)
 constexpr int NFEAT = 8;           // feature rows
 constexpr int ROW_X = 0, ROW_Y = 1, ROW_CA = 2, ROW_CB = 3, ROW_CC = 4;
-constexpr int ROW_OP = 5, ROW_DEPTH = 6, ROW_FEAT0 = 8;
+constexpr int ROW_OP = 5, ROW_DEPTH = 6, ROW_GID = 7, ROW_FEAT0 = 8;
 constexpr int MAX_CHUNK = 512;     // batch of staged instances (shared memory)
 
 constexpr float ALPHA_CAP = 0.99f;
@@ -226,8 +226,8 @@ __device__ __forceinline__ bool bwd_pair(const float* s, int j, int chunk,
 }
 
 // Sum one instance's gradient rows over the warp with shuffles and add
-// them to its gaussian's row of the (N, 16) table. Every lane of the warp
-// must call it for the same instance.
+// them to its gaussian's row of the (N, 16) table (B3d, B4). Every lane of
+// the warp must call it for the same instance.
 __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
                                               int gid, float* grad) {
   if (!__any_sync(0xffffffffu, contrib)) return;
@@ -243,6 +243,105 @@ __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
     for (int r = 0; r < ROWS; ++r)
       if (v[r] != 0.0f) atomicAdd(out + r, v[r]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The block-level reduction of B2 (raster_bwd.cu) and B3c
+// (raster_split_bwd.cu). Each staged batch sums its instances' rows in a
+// shared accumulator s_acc[ROWS][chunk], placed after the staged rows and
+// gids and zeroed when the batch is staged. Each warp reduce-scatters an
+// instance's rows and adds each row's warp sum with one shared atomicAdd.
+// After the batch's __syncthreads() the block flushes s_acc into the
+// (N, 16) table with one global atomicAdd per non-zero (instance, row):
+// 8x fewer global atomics than one per warp, and no block contends with
+// itself for an address.
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a B2/B3c block: staged rows, gids, s_acc.
+inline size_t bwd_smem_bytes(int chunk) {
+  return (size_t)chunk * (2 * ROWS * sizeof(float) + sizeof(int));
+}
+
+__device__ __forceinline__ float* bwd_acc(float* s, int chunk) {
+  return s + ROWS * chunk + chunk;  // past the staged rows and the gids
+}
+
+__device__ __forceinline__ void zero_acc(float* acc, int chunk) {
+  for (int i = threadIdx.x; i < ROWS * chunk; i += blockDim.x) acc[i] = 0.0f;
+}
+
+// One level of warp_reduce_scatter: of the 2H values held, each lane keeps
+// the half its bit `off` selects and adds its partner's copy of that half
+// (H shuffles at xor off).
+template <int H>
+__device__ __forceinline__ void halve(float* v, int off, int& row) {
+  const bool upper = (threadIdx.x & off) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+  if (upper) row += H;
+}
+
+// Reduce-scatter R values (R = 2, 4, 8 or 16) over the warp by recursive
+// halving: at xor 16 each lane keeps half of its values and adds its
+// partner's copy of that half (R/2 shuffles), at xor 8 half of that, and so
+// on; once one value is left the remaining offsets sum it. R = 16 takes 16
+// shuffles (8 + 4 + 2 + 1 + 1), R = 2 takes 5. Returns the warp sum of value
+// `row`, held alike by the lanes that differ only in their bits below
+// 32 / R. Every lane of the warp must call it.
+template <int R>
+__device__ __forceinline__ float warp_reduce_scatter(float* v, int& row) {
+  static_assert(R == 2 || R == 4 || R == 8 || R == 16, "R: 2, 4, 8 or 16");
+  row = 0;
+  int off = 16;
+  if constexpr (R == 16) halve<8>(v, off, row), off >>= 1;
+  if constexpr (R >= 8) halve<4>(v, off, row), off >>= 1;
+  if constexpr (R >= 4) halve<2>(v, off, row), off >>= 1;
+  halve<1>(v, off, row);
+  for (off >>= 1; off > 0; off >>= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  return v[0];
+}
+
+// Add staged instance j's ROWS gradient rows (v: this pixel's, zero where
+// the pair adds nothing) into s_acc column j. Every lane of the warp must
+// call it for the same instance; a warp to which no lane contributes skips.
+__device__ __forceinline__ void block_add_rows(float* v, bool contrib, int j,
+                                               int chunk, float* acc) {
+  if (!__any_sync(0xffffffffu, contrib)) return;
+  int row;
+  const float sum = warp_reduce_scatter<ROWS>(v, row);
+  if ((threadIdx.x & 1) == 0 && sum != 0.0f)
+    atomicAdd(acc + row * chunk + j, sum);
+}
+
+// Flush the batch's s_acc into the (N, 16) table: one global atomicAdd per
+// non-zero (instance, row), consecutive threads on one instance's 16
+// contiguous rows; rows the setting makes zero are skipped (the gid row,
+// features past nfeat, the median depth without carry_depth). Call after
+// the batch's __syncthreads().
+__device__ __forceinline__ void flush_rows(const float* acc, const int* s_gid,
+                                           int n, int chunk, int nfeat,
+                                           int carry_depth, float* grad) {
+  for (int i = threadIdx.x; i < n * ROWS; i += blockDim.x) {
+    const int j = i / ROWS, r = i % ROWS;
+    if (r == ROW_GID || r >= ROW_FEAT0 + nfeat ||
+        (r == ROW_DEPTH && !carry_depth))
+      continue;
+    const float v = acc[r * chunk + j];
+    if (v != 0.0f) atomicAdd(grad + (int64_t)s_gid[j] * ROWS + r, v);
+  }
+}
+
+// Allow a kernel the dynamic shared memory of a launch (past the 48 KB
+// default only after this opt-in). Returns a cudaError_t as int.
+inline int allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace splat

@@ -18,10 +18,12 @@
 // (rows [0, send) of tile_a, [send, lim) of tile_b), seeded from its
 // tile's carry or from T = 1, prefix 0 where the tile has no interior.
 // Both replay raster_common.cuh's rounded arithmetic, so every pixel dies
-// at the same instance as in B3a/B3b. Each instance's rows are summed over
-// each warp (a warp never spans the two segments) with shuffles and added
-// into the (N, 16) gradient table with atomicAdd; both kernels add into
-// the same table. Sums in atomic order vary in the last bits.
+// at the same instance as in B3a/B3b. B3c sums each staged batch's rows in
+// shared memory (raster_common.cuh's block-level reduction, as B2) and
+// flushes them with one atomicAdd per non-zero (instance, row); B3d sums
+// each instance's rows over each warp (a warp never spans the two
+// segments) with shuffles and adds them with atomicAdd. Both kernels add
+// into the same table. Sums in atomic order vary in the last bits.
 //
 // Bound on an H100: as B2, ~70 f32 operations per (pixel, instance) pair,
 // compute-bound, plus the atomics.
@@ -41,8 +43,9 @@ split_int_bwd_kernel(const float* __restrict__ attrs,
                      const float* __restrict__ g_color,
                      const float* __restrict__ g_aux,
                      float* __restrict__ grad, float* __restrict__ bcarry) {
-  extern __shared__ float s[];  // ROWS * chunk floats, then chunk gids
+  extern __shared__ float s[];  // staged rows, chunk gids, s_acc
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
+  float* acc = bwd_acc(s, chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = int_ranges[2 * tile], end = int_ranges[2 * tile + 1];
@@ -58,15 +61,18 @@ split_int_bwd_kernel(const float* __restrict__ attrs,
                 gcol, ga, gdep);
     for (int b = start; b < end; b += chunk) {
       const int n = min(chunk, end - b);
-      __syncthreads();
       stage_batch(s, s_gid, attrs, sorted_gid, b, n, chunk);
+      zero_acc(acc, chunk);
       __syncthreads();
       for (int j = 0; j < n; ++j) {  // warp-uniform: shuffles need every lane
         float v[ROWS];
         const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
                                       nfeat, carry_depth, T, dead, accw, v);
-        warp_add_rows(v, contrib, s_gid[j], grad);
+        block_add_rows(v, contrib, j, chunk, acc);
       }
+      __syncthreads();
+      flush_rows(acc, s_gid, n, chunk, nfeat, carry_depth, grad);
+      // also keeps the next batch's staging behind this flush
       if (__syncthreads_count(!dead) == 0) break;
     }
   }
@@ -135,7 +141,9 @@ extern "C" int raster_split_int_bwd(const float* attrs, const int* sorted_gid,
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (nfeat < 0 || nfeat > NFEAT) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)chunk * (ROWS * sizeof(float) + sizeof(int));
+  const size_t smem = bwd_smem_bytes(chunk);
+  const int rc = allow_smem((const void*)split_int_bwd_kernel, smem);
+  if (rc != 0) return rc;
   split_int_bwd_kernel<<<num_tiles, NPIX, smem, stream>>>(
       attrs, sorted_gid, int_ranges, grid_x, chunk, nfeat, carry_depth, color,
       aux, g_color, g_aux, grad, bcarry);
