@@ -287,29 +287,34 @@ def phase_build():
     check_sass()
 
 
-# Tensor-core products each probe kernel must keep in its SASS, per
-# (source, template arguments in the mangled name): P3's pass is 144
-# mma.sync per 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2
-# terms), dual two passes; P4's mxu 72 per 16-row tile, the two-product
-# bodies (mxu2dep, mxu2ind) 144.
+# Tensor-core products each kernel must keep in its SASS, per (source, a
+# substring of the mangled function name): P3's pass is 144 mma.sync per
+# 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
+# two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
+# mxu2ind) 144; B2's and B3c's warp sums 20 per sub-batch (4 k-steps x 2
+# moment and 3 feature passes), as P1's from `moments` on.
 MIN_HMMA = {
-    ("probe_ilp", "ILi1E"): 144, ("probe_ilp", "ILi2E"): 144,
-    ("probe_ilp", "ILi3E"): 288,
-    ("probe_step", "ILi2E"): 72, ("probe_step", "ILi3E"): 144,
-    ("probe_step", "ILi4E"): 144,
+    ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
+    ("probe_ilp", "kernelILi3E"): 288,
+    ("probe_step", "kernelILi2E"): 72, ("probe_step", "kernelILi3E"): 144,
+    ("probe_step", "kernelILi4E"): 144,
+    ("raster_bwd", "raster_bwd_kernel"): 20,
+    ("raster_split_bwd", "split_int_bwd_kernel"): 20,
+    ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
+    ("probe_ablate", "kernelILi9E"): 20,
 }
 
 
 def check_sass():
     """Count the mma instructions (HMMA) ptxas kept in each tensor-core
-    probe: it may merge products it can prove equal, and then the probe
-    would time less work than it reports."""
+    kernel: it may merge products it can prove equal, and then a kernel
+    would do, or a probe time, less work than it reports."""
     import shutil
 
     from splatam_torch.render import raster
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in ("probe_ilp", "probe_step"):
+    for src in sorted({name for name, _ in MIN_HMMA}):
         sass = subprocess.run([tool, "-sass", str(raster._library_path(src))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -323,7 +328,7 @@ def check_sass():
         for (name, tag), least in MIN_HMMA.items():
             if name != src:
                 continue
-            got = [c for f, c in counts.items() if f"kernel{tag}" in f]
+            got = [c for f, c in counts.items() if tag in f]
             if len(got) != 1 or got[0] < least:
                 fail(f"{src} {tag}: {got} mma instructions in its SASS, "
                      f"expected at least {least}")

@@ -9,9 +9,10 @@ same per-pixel outputs from ``raster.raster_bwd_plain``'s arithmetic.
 
 The stages follow B2's own structure; where the TPU tool has a stage of the
 same name it measures the counterpart. The TPU's ``dma_phi`` (its constant
-MXU basis blocks) has none: B2 reads no such blocks. ``rows`` splits the
-TPU's ``full`` delta into the gradient math (``rows``) and the reduction
-into the per-gaussian table (``full``).
+MXU basis blocks) has none: B2 makes its basis in registers. ``moments``,
+``reduce`` and ``full`` split the TPU's ``full`` delta into the pixel sums
+on the tensor cores, the block-level reduction into the shared accumulator
+and the flush into the per-gaussian table.
 
 Usage: python -m splatam_torch.bench.kernel_ablate [--iters 30] [--n N]
   [--w W] [--h H] [--device cuda]
@@ -31,7 +32,7 @@ from splatam_torch.render.binning import Binned
 from splatam_torch.render.geometry import ALPHA_CAP, ALPHA_MIN
 
 STAGES = ("dma0", "dma_lean", "dma_tile", "dma", "alpha", "scan", "gc",
-          "rows", "full")
+          "moments", "reduce", "full")
 WHAT = {
     "dma0": "block start, one write per pixel",
     "dma_lean": "staging every batch of the range into shared memory",
@@ -40,9 +41,12 @@ WHAT = {
     "alpha": "eval_pair's alpha for every pair",
     "scan": "transmittance and pixel death",
     "gc": "gc, suffix, dalpha, d/dopacity, dpower",
-    "rows": "the 16 gradient rows per pair, kept per pixel",
-    "full": "warp shuffles + atomicAdd into (N, 16): B2",
+    "moments": "dop, w to shared; pixel moments, feature sums (mma)",
+    "reduce": "the warps' sums over the block (slots, one barrier)",
+    "full": "the flush: rows recombined, atomicAdd into (N, 16): B2",
 }
+SUB = 16  # B2's warp sub-batch (raster_common.cuh): the mma's M
+WARPS = raster.NPIX // 32
 NFEAT = 4  # the mapping loss's gradient channels (slam_loss's grad_feats)
 
 
@@ -158,17 +162,59 @@ def ablate_plain(stage: str, x: AblationInputs) -> torch.Tensor:
         if stage == "gc":
             acc = acc + dpower.sum(1)
             continue
-        if stage != "rows":
+        gcol = x.g_color.clone()
+        gcol[:, x.nfeat:] = 0.0
+        # B2 keeps d/dopacity where the power was not clamped (dpower is
+        # the opacity times it) and adds the rest apart
+        gated = torch.where(praw <= 0, dop, zero)
+        if stage == "moments":
+            acc = acc + _lane_sums(gated, w, gcol)
+            continue
+        if stage != "reduce":
             raise ValueError(f"unknown stage {stage!r}")
-        ca = rows[..., raster.ROW_CA, None]
-        cb = rows[..., raster.ROW_CB, None]
-        cc = rows[..., raster.ROW_CC, None]
-        v = [dpower * -(ca * dx + cb * dy), dpower * -(cc * dy + cb * dx),
-             dpower * (-0.5 * (dx * dx)), -(dpower * (dx * dy)),
-             dpower * (-0.5 * (dy * dy)), dop]
-        v += [w * x.g_color[:, f, None, :] for f in range(x.nfeat)]
-        acc = acc + torch.stack(v).sum(0).sum(1)
+        # the block's sums: the six moments of the gated d/dopacity, the
+        # d/dopacity added apart, no median depth (the probe runs without
+        # carry_depth), the feature sums; pixel p reads column p % 16 of
+        # instances p // 16, p // 16 + 16, ... of the batch
+        c = dop.shape[1]
+        s_acc = torch.cat([
+            torch.einsum("tcp,pb->tbc", gated, tile_basis(dev)),
+            (dop - gated).sum(-1)[:, None], dop.new_zeros((t, 1, c)),
+            torch.einsum("tcp,tfp->tfc", w, gcol),
+        ], dim=1)  # (T, 16, C)
+        pad = s_acc.new_zeros((t, raster.ROWS, -c % SUB))
+        by_pos = torch.cat([s_acc, pad], -1).reshape(t, raster.ROWS, -1, SUB)
+        acc = acc + by_pos.sum(2).permute(0, 2, 1).reshape(t, raster.NPIX)
     return acc
+
+
+def tile_basis(device) -> torch.Tensor:
+    """(NPIX, 6) moment basis (1, x, y, x^2, xy, y^2) of every pixel of a
+    tile, centred on the tile: |x|, |y| <= 7.5."""
+    p = torch.arange(raster.NPIX, device=device)
+    xs = (p % raster.TILE).float() - 7.5
+    ys = (p // raster.TILE).float() - 7.5
+    return torch.stack([torch.ones_like(xs), xs, ys, xs * xs, xs * ys,
+                        ys * ys], -1)
+
+
+def _lane_sums(gated, w, gcol):
+    """``moments``' per-pixel output: each warp's mma sums over its own 32
+    pixels (instances as rows: the moments of the gated d/dopacity in
+    columns 0-5 of one product, the feature sums in columns 0-7 of the
+    other), each lane's C-fragment entries summed, batch position c in rows
+    c % 8 of the fragment (c % 16 and c % 16 + 8 of the sub-batch), columns
+    2t, 2t + 1 at lane 4g + t."""
+    t, c, _ = gated.shape
+    basis = tile_basis(gated.device).reshape(WARPS, 32, 6)
+    cm = torch.einsum("tcwq,wqb->tcwb", gated.reshape(t, c, WARPS, 32), basis)
+    cm = torch.cat([cm, cm.new_zeros((t, c, WARPS, 2))], -1)
+    cf = torch.einsum("tcwq,tfwq->tcwf", w.reshape(t, c, WARPS, 32),
+                      gcol.reshape(t, -1, WARPS, 32))
+    pairs = (cm + cf).reshape(t, c, WARPS, 4, 2).sum(-1)  # (T, C, warp, t)
+    pad = pairs.new_zeros((t, -c % 8, WARPS, 4))
+    by_row = torch.cat([pairs, pad], 1).reshape(t, -1, 8, WARPS, 4).sum(1)
+    return by_row.permute(0, 2, 1, 3).reshape(t, raster.NPIX)
 
 
 def ablate(stage: str, x: AblationInputs) -> torch.Tensor:

@@ -13,22 +13,30 @@
 //   alpha     + eval_pair's alpha for every (pixel, instance) pair
 //   scan      + transmittance and pixel death
 //   gc        + gc, the suffix, dalpha, d/dopacity and dpower
-//   rows      + the 16 gradient rows of every pair (bwd_pair), kept per pixel
-//   full      + warp shuffles and atomicAdd into the (N, 16) table: B2 itself
+//   moments   + d/dopacity (gated) and w into the warps' shared buffers
+//               and the warps' tensor-core sums (moments, feature sums) of
+//               each sub-batch
+//   reduce    + the block-level reduction: each warp's sums in its slot,
+//               one thread per (instance, column) summing the 8 slots
+//   full      + the flush: geometry rows recombined, one atomicAdd per
+//               non-zero (instance, row) into the (N, 16) table: B2 itself
 //
 // The TPU's `dma_phi` stage timed the two constant MXU basis blocks its
-// kernels read; B2 reads no such blocks, so it has no instance here.
+// kernels read; B2 makes its basis in registers, so it has no instance here.
 //
 // A truncated stage must not be dead code, so each accumulates its last
 // quantity per pixel in a register and writes one float per pixel, a
 // (T, 256) output: the staged values (dma stages; the gid as well in `dma`),
 // sum alpha (`alpha`, every pair of the range: nothing dies before `scan`),
 // sum w = sum alpha T (`scan`: 1 - the forward's final T), sum dpower
-// (`gc`: summed over the image, sum_g op_g dL/dop_g), the sum of all 16 rows
-// (`rows`). Stages that do not read the cotangent inputs they loaded keep
-// them alive through a test for NaN that never holds. The arithmetic is
-// raster_common.cuh's (stage_batch, eval_pair, pair_dpower, bwd_pair,
-// warp_add_rows), so `full` is B2 and the stages replay its rounding.
+// (`gc`: summed over the image, sum_g op_g dL/dop_g), the lane's entries of
+// the warp sums' C fragments (`moments`), column p % 16 of the block's
+// sums of instances p / 16, p / 16 + 16, ... (`reduce`). Stages that do not
+// read the cotangent inputs they loaded keep them alive through a test for
+// NaN that never holds. The arithmetic is raster_common.cuh's (stage_batch,
+// eval_pair, pair_dpower, sub_pairs, warp_sums, part_put, part_column,
+// bwd_batch), so
+// `full` is B2 and the stages replay its rounding.
 //
 // Bound on an H100: that of B2 for `full` (f32 operations per evaluated
 // pair); the stages do a subset of it.
@@ -37,11 +45,12 @@
 using namespace splat;
 
 enum Stage {
-  DMA0, DMA_LEAN, DMA_TILE, DMA, ALPHA, SCAN, GC, ROWS_KEPT, FULL, NSTAGES
+  DMA0, DMA_LEAN, DMA_TILE, DMA, ALPHA, SCAN, GC, MOMENTS, REDUCE, FULL,
+  NSTAGES
 };
 
 template <int STAGE>
-__global__ void __launch_bounds__(NPIX)
+__global__ void __launch_bounds__(NPIX, BWD_BLOCKS)
 ablate_kernel(const float* __restrict__ attrs,
               const int* __restrict__ sorted_gid,
               const int* __restrict__ ranges, int grid_x, int chunk,
@@ -50,8 +59,11 @@ ablate_kernel(const float* __restrict__ attrs,
               const float* __restrict__ g_color,
               const float* __restrict__ g_aux, float* __restrict__ pix,
               float* __restrict__ grad) {
-  extern __shared__ float s[];  // ROWS * chunk floats, then chunk gids
+  extern __shared__ float s[];  // rows, gids, sums apart, buffers
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
+  float* apart = bwd_apart(s, chunk);
+  float* wbuf = bwd_wbuf(s, chunk);
+  float* buf = wbuf + (threadIdx.x >> 5) * WBUF;  // this warp's
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int64_t out = (int64_t)tile * NPIX + p;
@@ -60,25 +72,27 @@ ablate_kernel(const float* __restrict__ attrs,
     return;
   }
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
+  const float tx = (float)((tile % grid_x) * TILE);
+  const float ty = (float)((tile / grid_x) * TILE);
+  const float px = tx + (float)(p % TILE), py = ty + (float)(p / TILE);
 
   float gcol[NFEAT], ga = 0.0f, gdep = 0.0f;
   if (STAGE >= DMA_TILE)
     grad_inputs(color, aux, g_color, g_aux, (int64_t)tile * NFEAT * NPIX + p,
                 gcol, ga, gdep);
+  MomentB m;
+  if (STAGE >= MOMENTS) moment_operands(gcol, nfeat, m);
   float acc = 0.0f;  // the stage's per-pixel quantity
   float T = 1.0f;
   bool dead = false;
   float accw = 0.0f;  // running prefix of w * gc
 
-  float* s_acc = bwd_acc(s, chunk);
   for (int b = start; b < end; b += chunk) {
     const int n = min(chunk, end - b);
     if (STAGE < DMA) __syncthreads();  // later stages end on the exit test
     stage_batch(s, STAGE >= DMA ? s_gid : nullptr, attrs, sorted_gid, b, n,
                 chunk);
-    if (STAGE == FULL) zero_acc(s_acc, chunk);
+    if (STAGE >= MOMENTS) zero_apart(apart, chunk);
     __syncthreads();
     if (STAGE <= DMA) {
       const int j = (p / ROWS) % n;
@@ -107,30 +121,42 @@ ablate_kernel(const float* __restrict__ attrs,
         acc = __fadd_rn(acc, g.dpower);
         T = g.test;
       }
-    } else if (STAGE == ROWS_KEPT) {
-      for (int j = 0; j < n; ++j) {
-        float v[ROWS];
-        bwd_pair(s, j, chunk, px, py, gcol, ga, gdep, nfeat, carry_depth, T,
-                 dead, accw, v);
-        float sv = 0.0f;
+    } else if (STAGE == MOMENTS) {  // the warps' sums, kept per lane
+      for (int jb = 0; jb < n; jb += SUB) {
+        const bool any = sub_pairs(s, jb, n, chunk, px, py, gcol, ga, gdep,
+                                   carry_depth, buf, apart, T, dead, accw);
+        __syncwarp();
+        if (__any_sync(0xffffffffu, any)) {
+          float cm[4], cf[4];
+          warp_sums(buf, m, cm, cf);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) sv = __fadd_rn(sv, v[r]);
-        acc = __fadd_rn(acc, sv);
+          for (int i = 0; i < 4; ++i)
+            acc = __fadd_rn(acc, __fadd_rn(cm[i], cf[i]));
+        }
+        __syncwarp();
+      }
+    } else if (STAGE == REDUCE) {  // bwd_batch without the flush
+      for (int jb = 0; jb < n; jb += SUB) {
+        const bool any = sub_pairs(s, jb, n, chunk, px, py, gcol, ga, gdep,
+                                   carry_depth, buf, apart, T, dead, accw);
+        __syncwarp();
+        float cm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float cf[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (__any_sync(0xffffffffu, any)) warp_sums(buf, m, cm, cf);
+        __syncwarp();
+        part_put(buf, cm, cf);
+        __syncthreads();
+        acc = __fadd_rn(acc, part_column(wbuf, apart, jb, n, chunk));
+        __syncthreads();
       }
     } else {  // FULL: raster_bwd.cu's loop
-      for (int j = 0; j < n; ++j) {  // warp-uniform: shuffles need every lane
-        float v[ROWS];
-        const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
-                                      nfeat, carry_depth, T, dead, accw, v);
-        block_add_rows(v, contrib, j, chunk, s_acc);
-      }
-      __syncthreads();
-      flush_rows(s_acc, s_gid, n, chunk, nfeat, carry_depth, grad);
+      bwd_batch(s, s_gid, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gcol, ga,
+                gdep, nfeat, carry_depth, m, wbuf, apart, T, dead, accw, grad);
     }
     if (STAGE >= DMA && __syncthreads_count(!dead) == 0) break;
   }
   if (STAGE == FULL) return;
-  if (STAGE >= DMA_TILE && STAGE <= GC) {
+  if (STAGE >= DMA_TILE && STAGE <= MOMENTS) {
     const float keep = __fadd_rn(ga, gdep);
     if (keep != keep) acc = keep;  // never: the loads stay live
   }
@@ -144,7 +170,8 @@ typedef void (*AblateFn)(const float*, const int*, const int*, int, int, int,
 static const AblateFn kStages[NSTAGES] = {
     ablate_kernel<DMA0>,  ablate_kernel<DMA_LEAN>, ablate_kernel<DMA_TILE>,
     ablate_kernel<DMA>,   ablate_kernel<ALPHA>,    ablate_kernel<SCAN>,
-    ablate_kernel<GC>,    ablate_kernel<ROWS_KEPT>, ablate_kernel<FULL>,
+    ablate_kernel<GC>,    ablate_kernel<MOMENTS>,  ablate_kernel<REDUCE>,
+    ablate_kernel<FULL>,
 };
 
 extern "C" int probe_ablate(const float* attrs, const int* sorted_gid,

@@ -246,94 +246,92 @@ __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
 }
 
 // ---------------------------------------------------------------------------
-// The block-level reduction of B2 (raster_bwd.cu) and B3c
-// (raster_split_bwd.cu). Each staged batch sums its instances' rows in a
-// shared accumulator s_acc[ROWS][chunk], placed after the staged rows and
-// gids and zeroed when the batch is staged. Each warp reduce-scatters an
-// instance's rows and adds each row's warp sum with one shared atomicAdd.
-// After the batch's __syncthreads() the block flushes s_acc into the
-// (N, 16) table with one global atomicAdd per non-zero (instance, row):
-// 8x fewer global atomics than one per warp, and no block contends with
-// itself for an address.
+// The backward of B2 (raster_bwd.cu) and B3c (raster_split_bwd.cu): the
+// pixel sums of each instance's gradient rows on the tensor cores, in the
+// TPU kernel's moment form (`_bwd_chunk_body`, pallas_raster.py:903-952),
+// and a block-level reduction of them. B3d and B4 keep bwd_pair and
+// warp_add_rows above.
+//
+// Every pixel's thread walks the staged batch in order (pair_dpower: the
+// transmittance replay is sequential per pixel) and writes, for each
+// instance of a warp sub-batch of SUB = 16, two values into its warp's
+// shared buffers: d/dopacity where the power was not clamped (there
+// dpower is the instance's opacity times it) and w. The warp then takes
+// the sums over its 32 pixels with mma.sync m16n8k8 TF32 products,
+// instances as M and pixels as K: the six moments sum_p phi_b(p) dop[p, j]
+// against the basis phi = (1, x, y, x^2, xy, y^2) in tile-centred
+// coordinates (|x|, |y| <= 7.5) -- moment 0 is d/dopacity's sum, and the
+// opacity scales all six into dpower's at the flush -- and the eight
+// feature sums sum_p gcol_f(p) w[p, j]. The block-level reduction: each
+// warp stores its C fragments in a slot, and after a __syncthreads()
+// thread (i, c) sums column c of instance i over the 8 slots. d/dopacity
+// where the power was clamped (never, for a positive-definite conic) and
+// the median-crossing depth term (at most once per pixel and tile) are
+// added apart by the pixel concerned. The same threads then flush the
+// sub-batch into the (N, 16) table with one global atomicAdd per non-zero
+// (instance, row), the five geometry rows recombined once per instance
+// from the moments, the mean's offset (xl, yl) from the tile centre and
+// the conic: sum_p dpower dx = xl s0 - sx, ..., conic a's row
+// -1/2 (xl^2 s0 - 2 xl sx + sxx). A pair costs two shared stores instead
+// of 16 rows and 80 shuffles; an instance costs one global atomic per row
+// and block instead of one per row and warp; no shuffle or shared atomic
+// runs per instance (sm_90 has no native shared f32 atomicAdd: it is a
+// compare-and-swap loop, and 8 warps adding into one sub-batch collide).
+// Instances past a saturated tile's exit add nothing: the loop exits only
+// after a whole batch.
+//
+// Precision. TF32 keeps 11 significant bits, and the product of two TF32
+// values is exact in the f32 accumulator. The basis values (multiples of
+// 0.25 up to 56.25) are exact in TF32. d/dopacity is split hi + lo (two
+// passes), w and gcol both (three passes: lo hi, hi lo, hi hi; 3xTF32),
+// so each product keeps ~20 significant bits, as an f32 sum keeps 24.
+// The recombination scales a moment's error by up to xl^2 for a mean far
+// off its tile, which is also the scale of that
+// instance's conic rows, so the rows keep about the moments' relative
+// precision, ~2^-20 of their terms' sizes, against GRAD_TOL = 5e-5 of the
+// table's largest gradient (chip_smoke.py holds both kernels to it on its
+// far_contention scene, means 100-600 px off their tiles). A single TF32
+// pass (each product rounded to ~2^-11, 5e-4) would not hold it.
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of a B2/B3c block: staged rows, gids, s_acc.
-inline size_t bwd_smem_bytes(int chunk) {
-  return (size_t)chunk * (2 * ROWS * sizeof(float) + sizeof(int));
+constexpr int NWARP = NPIX / 32;
+// blocks per SM a B2/B3c launch keeps room for (registers capped at 80 a
+// thread; shared memory allows 3 up to chunk 256)
+constexpr int BWD_BLOCKS = 3;
+constexpr int SUB = 16;             // instances per warp sub-batch: mma's M
+constexpr int WBUF = 2 * SUB * 32;  // floats per warp: dop, then w
+// columns of a warp's C fragments (its slot): 0-5 the six moments, 8-15
+// the feature sums; the block's sums add in 6 d/dopacity where the power
+// was clamped and 7 the median-depth term, each added apart
+constexpr int COL_OP = 6, COL_DEPTH = 7, COL_FEAT0 = 8;
+
+// Layout of a B2/B3c block's dynamic shared memory, in floats: the staged
+// rows, the gids, the batch's two sums added apart (columns 6 and 7: one
+// row each), then (16-byte aligned, for the fragments' 8-byte loads) the
+// warps' sub-batch buffers.
+__host__ __device__ inline int bwd_wbuf_offset(int chunk) {
+  return (ROWS * chunk + 3 * chunk + 3) & ~3;
 }
 
-__device__ __forceinline__ float* bwd_acc(float* s, int chunk) {
+inline size_t bwd_smem_bytes(int chunk) {
+  return (size_t)(bwd_wbuf_offset(chunk) + NWARP * WBUF) * sizeof(float);
+}
+
+// The batch's sums added apart, (2, chunk): d/dopacity where the power was
+// clamped, then the median-depth term.
+__device__ __forceinline__ float* bwd_apart(float* s, int chunk) {
   return s + ROWS * chunk + chunk;  // past the staged rows and the gids
 }
 
-__device__ __forceinline__ void zero_acc(float* acc, int chunk) {
-  for (int i = threadIdx.x; i < ROWS * chunk; i += blockDim.x) acc[i] = 0.0f;
+// Warp 0's buffers; warp w's start WBUF floats further: (SUB, 32) dop
+// where the power was not clamped, then w; the first doubles as the
+// warp's slot.
+__device__ __forceinline__ float* bwd_wbuf(float* s, int chunk) {
+  return s + bwd_wbuf_offset(chunk);
 }
 
-// One level of warp_reduce_scatter: of the 2H values held, each lane keeps
-// the half its bit `off` selects and adds its partner's copy of that half
-// (H shuffles at xor off).
-template <int H>
-__device__ __forceinline__ void halve(float* v, int off, int& row) {
-  const bool upper = (threadIdx.x & off) != 0;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-  }
-  if (upper) row += H;
-}
-
-// Reduce-scatter R values (R = 2, 4, 8 or 16) over the warp by recursive
-// halving: at xor 16 each lane keeps half of its values and adds its
-// partner's copy of that half (R/2 shuffles), at xor 8 half of that, and so
-// on; once one value is left the remaining offsets sum it. R = 16 takes 16
-// shuffles (8 + 4 + 2 + 1 + 1), R = 2 takes 5. Returns the warp sum of value
-// `row`, held alike by the lanes that differ only in their bits below
-// 32 / R. Every lane of the warp must call it.
-template <int R>
-__device__ __forceinline__ float warp_reduce_scatter(float* v, int& row) {
-  static_assert(R == 2 || R == 4 || R == 8 || R == 16, "R: 2, 4, 8 or 16");
-  row = 0;
-  int off = 16;
-  if constexpr (R == 16) halve<8>(v, off, row), off >>= 1;
-  if constexpr (R >= 8) halve<4>(v, off, row), off >>= 1;
-  if constexpr (R >= 4) halve<2>(v, off, row), off >>= 1;
-  halve<1>(v, off, row);
-  for (off >>= 1; off > 0; off >>= 1)
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-  return v[0];
-}
-
-// Add staged instance j's ROWS gradient rows (v: this pixel's, zero where
-// the pair adds nothing) into s_acc column j. Every lane of the warp must
-// call it for the same instance; a warp to which no lane contributes skips.
-__device__ __forceinline__ void block_add_rows(float* v, bool contrib, int j,
-                                               int chunk, float* acc) {
-  if (!__any_sync(0xffffffffu, contrib)) return;
-  int row;
-  const float sum = warp_reduce_scatter<ROWS>(v, row);
-  if ((threadIdx.x & 1) == 0 && sum != 0.0f)
-    atomicAdd(acc + row * chunk + j, sum);
-}
-
-// Flush the batch's s_acc into the (N, 16) table: one global atomicAdd per
-// non-zero (instance, row), consecutive threads on one instance's 16
-// contiguous rows; rows the setting makes zero are skipped (the gid row,
-// features past nfeat, the median depth without carry_depth). Call after
-// the batch's __syncthreads().
-__device__ __forceinline__ void flush_rows(const float* acc, const int* s_gid,
-                                           int n, int chunk, int nfeat,
-                                           int carry_depth, float* grad) {
-  for (int i = threadIdx.x; i < n * ROWS; i += blockDim.x) {
-    const int j = i / ROWS, r = i % ROWS;
-    if (r == ROW_GID || r >= ROW_FEAT0 + nfeat ||
-        (r == ROW_DEPTH && !carry_depth))
-      continue;
-    const float v = acc[r * chunk + j];
-    if (v != 0.0f) atomicAdd(grad + (int64_t)s_gid[j] * ROWS + r, v);
-  }
+__device__ __forceinline__ void zero_apart(float* apart, int chunk) {
+  for (int j = threadIdx.x; j < 2 * chunk; j += blockDim.x) apart[j] = 0.0f;
 }
 
 // Allow a kernel the dynamic shared memory of a launch (past the 48 KB
@@ -342,6 +340,279 @@ inline int allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The column of lane l's pixel in a buffer row. Pixel lane l is k-index
+// kk = l % 8 of k-step l / 8 and sits at 8 (l / 8) + 2 (kk % 4) + kk / 4, so
+// that an A fragment's (col t, col t + 4) pair is one 8-byte load; row jj
+// is swizzled by xor 8 (jj % 4), so that the eight rows of a fragment
+// load fall in distinct banks.
+__device__ __forceinline__ int wbuf_col(int lane) {
+  return (lane & ~7) | ((lane & 3) << 1) | ((lane >> 2) & 1);
+}
+
+// Write this pixel's gated d/dopacity and w of sub-batch instance jj.
+__device__ __forceinline__ void wbuf_put(float* buf, int jj, int col,
+                                         float dop, float w) {
+  const int i = jj * 32 + (col ^ ((jj & 3) << 3));
+  buf[i] = dop;
+  buf[SUB * 32 + i] = w;
+}
+
+// x = hi + lo: hi is x cut to TF32 (its low 13 mantissa bits cleared) and
+// lo = x - hi is exact in f32; the mma reads lo's TF32 bits, so the pair
+// carries x to within 2^-20 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b: mma.sync m16n8k8, TF32 operands, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of k-step k of a (SUB, 32) buffer, split hi + lo:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void load_a(const float* x, int k, uint32_t* hi,
+                                       uint32_t* lo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = x + ((8 * k + 2 * t) ^ ((g & 3) << 3));
+  const float2 r0 = *reinterpret_cast<const float2*>(p + g * 32);
+  const float2 r1 = *reinterpret_cast<const float2*>(p + (g + 8) * 32);
+  split_tf32(r0.x, hi[0], lo[0]);
+  split_tf32(r1.x, hi[1], lo[1]);
+  split_tf32(r0.y, hi[2], lo[2]);
+  split_tf32(r1.y, hi[3], lo[3]);
+}
+
+// A warp's B fragments, constant over a tile. For k-step k and half h
+// (k-index t + 4h, t = lane % 4, g = lane / 4): the basis value phi_g of
+// pixel lane 8k + t + 4h (zero for g >= 6), and its dL/dcolor_g split
+// hi + lo (zero for g >= nfeat).
+struct MomentB {
+  uint32_t phi[4][2], gh[4][2], gl[4][2];
+};
+
+// Every lane of the warp must call it: it shuffles gcol across the warp.
+__device__ __forceinline__ void moment_operands(const float* gcol, int nfeat,
+                                                MomentB& m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = (threadIdx.x >> 5) * 2;  // tile row of the warp's pixel 0
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 8 * k + t + 4 * h;
+      const float x = (float)(l & 15) - 7.5f;
+      const float y = (float)(row0 + (l >> 4)) - 7.5f;
+      const float phi = g == 0 ? 1.0f : g == 1 ? x : g == 2 ? y
+                      : g == 3 ? x * x : g == 4 ? x * y : g == 5 ? y * y
+                      : 0.0f;
+      m.phi[k][h] = __float_as_uint(phi);
+      float gv = 0.0f;
+#pragma unroll
+      for (int f = 0; f < NFEAT; ++f) {
+        const float v = __shfl_sync(0xffffffffu, gcol[f], l);
+        if (f == g && f < nfeat) gv = v;
+      }
+      split_tf32(gv, m.gh[k][h], m.gl[k][h]);
+    }
+  }
+}
+
+// The warp's sums over its 32 pixels of the sub-batch in its buffers: the
+// C fragments of the moments of the gated d/dopacity (cm: columns 0-5;
+// 6, 7 zero) and of the feature sums (cf), rows the sub-batch's
+// instances. Entry i of a C fragment is (row g + 8 (i / 2), column
+// 2t + i % 2). The lo passes run in their own accumulators (shorter
+// dependency chains).
+__device__ __forceinline__ void warp_sums(const float* buf, const MomentB& m,
+                                          float* cm, float* cf) {
+  float cm2[4], cf2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cm[i] = cf[i] = cm2[i] = cf2[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t ah[4], al[4];
+    load_a(buf, k, ah, al);  // d/dopacity, gated
+    mma_tf32(cm2, al, m.phi[k]);
+    mma_tf32(cm, ah, m.phi[k]);
+    load_a(buf + SUB * 32, k, ah, al);  // w
+    mma_tf32(cf2, al, m.gh[k]);
+    mma_tf32(cf2, ah, m.gl[k]);
+    mma_tf32(cf, ah, m.gh[k]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    cm[i] += cm2[i];
+    cf[i] += cf2[i];
+  }
+}
+
+// Store a warp's C fragments (zero for a warp to which no pixel
+// contributed) in its slot, the first SUB * 16 floats of its buffers:
+// (SUB, 16), columns 0-7 cm and 8-15 cf, row i swizzled by xor 8
+// ((i / 2) % 2) so that a half-warp's 8-byte stores fall in distinct banks.
+// Call once the warp's fragment loads are done (__syncwarp()).
+__device__ __forceinline__ void part_put(float* slot, const float* cm,
+                                         const float* cf) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sw = ((g >> 1) & 1) << 3;  // the same for rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = slot + (g + 8 * h) * 16;
+    *reinterpret_cast<float2*>(row + ((2 * t) ^ sw)) =
+        make_float2(cm[2 * h], cm[2 * h + 1]);
+    *reinterpret_cast<float2*>(row + ((COL_FEAT0 + 2 * t) ^ sw)) =
+        make_float2(cf[2 * h], cf[2 * h + 1]);
+  }
+}
+
+// The block-level reduction of a sub-batch starting at instance jb of n:
+// thread (i, c) = (tid / 16, tid % 16) returns column c of instance jb + i
+// summed over the warps' slots (`wbuf`: warp 0's buffers), or for columns
+// 6 and 7 the batch's sums added apart. Call after a __syncthreads() that
+// follows every warp's part_put.
+__device__ __forceinline__ float part_column(const float* wbuf,
+                                             const float* apart, int jb,
+                                             int n, int chunk) {
+  const int i = threadIdx.x >> 4, c = threadIdx.x & 15;
+  if (jb + i >= n) return 0.0f;
+  if (c == COL_OP || c == COL_DEPTH)
+    return apart[(c - COL_OP) * chunk + jb + i];
+  const float* p = wbuf + i * 16 + (c ^ (((i >> 1) & 1) << 3));
+  float v = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) v += p[w * WBUF];
+  return v;
+}
+
+// Flush a sub-batch's column sums (v from part_column) into the (N, 16)
+// table: thread (i, r) adds row r of instance jb + i with one global
+// atomicAdd if it is not zero, consecutive threads on one instance's 16
+// contiguous rows. The five geometry rows are recombined from the moments
+// (gathered from the instance's 16 lanes), the mean's offset (xl, yl) from
+// the tile centre (cx, cy) and the conic; rows the setting makes zero are
+// skipped (the gid row, features past nfeat, the median depth without
+// carry_depth). Every lane of the warp must call it.
+__device__ __forceinline__ void flush_rows(float v, const float* s,
+                                           const int* s_gid, int jb, int n,
+                                           int chunk, float cx, float cy,
+                                           int nfeat, int carry_depth,
+                                           float* grad) {
+  const int i = threadIdx.x >> 4, r = threadIdx.x & 15;
+  const int lb = threadIdx.x & 16;  // the instance's first lane
+  float mo[6];
+#pragma unroll
+  for (int b = 0; b < 6; ++b) mo[b] = __shfl_sync(0xffffffffu, v, lb + b);
+  const float op_apart = __shfl_sync(0xffffffffu, v, lb + COL_OP);
+  const float dsum = __shfl_sync(0xffffffffu, v, lb + COL_DEPTH);
+  const int j = jb + i;
+  if (j >= n || r == ROW_GID || r >= ROW_FEAT0 + nfeat ||
+      (r == ROW_DEPTH && !carry_depth))
+    return;
+  float out;
+  if (r == ROW_OP) {  // moment 0 is the gated d/dopacity's sum
+    out = mo[0] + op_apart;
+  } else if (r == ROW_DEPTH) {
+    out = dsum;
+  } else if (r >= ROW_FEAT0) {
+    out = v;  // column r: the feature sum
+  } else {  // dpower = opacity x the gated d/dopacity
+    const float op = s[ROW_OP * chunk + j];
+#pragma unroll
+    for (int b = 0; b < 6; ++b) mo[b] *= op;
+    const float xl = s[ROW_X * chunk + j] - cx;
+    const float yl = s[ROW_Y * chunk + j] - cy;
+    // the tile's sums of dpower dx and dpower dy (dx = xl - x)
+    const float sdx = xl * mo[0] - mo[1], sdy = yl * mo[0] - mo[2];
+    if (r == ROW_X) {
+      out = -(s[ROW_CA * chunk + j] * sdx + s[ROW_CB * chunk + j] * sdy);
+    } else if (r == ROW_Y) {
+      out = -(s[ROW_CC * chunk + j] * sdy + s[ROW_CB * chunk + j] * sdx);
+    } else if (r == ROW_CA) {  // sum dpower dx^2 = xl sdx - xl sx + sxx
+      out = -0.5f * (xl * sdx - (xl * mo[1] - mo[3]));
+    } else if (r == ROW_CB) {  // sum dpower dx dy = xl sdy - yl sx + sxy
+      out = -(xl * sdy - (yl * mo[1] - mo[4]));
+    } else {  // ROW_CC: sum dpower dy^2 = yl sdy - yl sy + syy
+      out = -0.5f * (yl * sdy - (yl * mo[2] - mo[5]));
+    }
+  }
+  if (out != 0.0f) atomicAdd(grad + (int64_t)s_gid[j] * ROWS + r, out);
+}
+
+// One warp sub-batch of the pass: this pixel's pair_dpower for instances
+// [jb, jb + SUB) of the staged batch (of n), in order. Into the warp's
+// buffers go d/dopacity where the power was not clamped (there dpower is
+// the opacity times it, so the flush scales its moments; zero elsewhere)
+// and w, both zero where the pair adds nothing or past n; into `apart`
+// d/dopacity where the power was clamped (none for a positive-definite
+// conic) and the median-crossing depth term. Advances T, dead and accw;
+// returns whether any pair contributed.
+__device__ __forceinline__ bool sub_pairs(const float* s, int jb, int n,
+                                          int chunk, float px, float py,
+                                          const float* gcol, float ga,
+                                          float gdep, int carry_depth,
+                                          float* buf, float* apart, float& T,
+                                          bool& dead, float& accw) {
+  const int col = wbuf_col(threadIdx.x & 31);
+  bool any = false;
+#pragma unroll 4  // the buffers' row swizzle repeats every 4 rows
+  for (int jj = 0; jj < SUB; ++jj) {
+    const int j = jb + jj;
+    float dop = 0.0f, w = 0.0f;
+    PairGrad pg;
+    if (j < n &&
+        pair_dpower(s, j, chunk, px, py, gcol, ga, T, dead, accw, pg)) {
+      if (pg.q.praw <= 0.0f)
+        dop = pg.dop;
+      else if (pg.dop != 0.0f)
+        atomicAdd(apart + j, pg.dop);
+      w = pg.w;
+      if (carry_depth && T > 0.5f && pg.test < 0.5f)
+        atomicAdd(apart + chunk + j, gdep);
+      T = pg.test;
+      any = true;
+    }
+    wbuf_put(buf, jj, col, dop, w);
+  }
+  return any;
+}
+
+// One staged batch of n instances through the backward, flushed into the
+// (N, 16) table sub-batch by sub-batch. Call once the batch is staged, its
+// sums apart zeroed and the block synchronised; every thread of the block
+// must call it (it synchronises the block twice per sub-batch). Advances
+// T, dead and accw.
+__device__ __forceinline__ void bwd_batch(const float* s, const int* s_gid,
+                                          int n, int chunk, float px,
+                                          float py, float cx, float cy,
+                                          const float* gcol, float ga,
+                                          float gdep, int nfeat,
+                                          int carry_depth, const MomentB& m,
+                                          float* wbuf, float* apart,
+                                          float& T, bool& dead, float& accw,
+                                          float* grad) {
+  float* buf = wbuf + (threadIdx.x >> 5) * WBUF;
+  for (int jb = 0; jb < n; jb += SUB) {  // block-uniform
+    const bool any = sub_pairs(s, jb, n, chunk, px, py, gcol, ga, gdep,
+                               carry_depth, buf, apart, T, dead, accw);
+    __syncwarp();
+    float cm[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cf[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (__any_sync(0xffffffffu, any)) warp_sums(buf, m, cm, cf);
+    __syncwarp();
+    part_put(buf, cm, cf);
+    __syncthreads();
+    flush_rows(part_column(wbuf, apart, jb, n, chunk), s, s_gid, jb, n,
+               chunk, cx, cy, nfeat, carry_depth, grad);
+    __syncthreads();  // the next sub-batch overwrites the buffers
+  }
 }
 
 }  // namespace splat

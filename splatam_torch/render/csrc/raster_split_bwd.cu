@@ -13,27 +13,31 @@
 //   row 1  the running prefix of w * gc (the tail continues it)
 //
 // B3c: one block per tile, one thread per pixel over the tile's interior
-// range (B2's loop), then the carry.
+// range, then the carry. It is B2's loop and design (raster_bwd.cu,
+// raster_common.cuh's bwd_batch): per pair only the gated d/dopacity and
+// w, kept in shared memory; the pixel sums as moments against the
+// tile-centred basis and feature sums on the tensor cores (mma.sync TF32,
+// split hi + lo and 3xTF32: within 5e-5 of scale); the warps' sums reduced
+// over the block through shared slots, one barrier per sub-batch of 16
+// instances, and flushed with one global atomicAdd per non-zero (instance,
+// row). Like B2 it is bound by the f32 pipes that issue the per-pair
+// replay.
 // B3d: one block per tail chunk, 2 x 256 threads, each half one segment
 // (rows [0, send) of tile_a, [send, lim) of tile_b), seeded from its
-// tile's carry or from T = 1, prefix 0 where the tile has no interior.
+// tile's carry or from T = 1, prefix 0 where the tile has no interior. It
+// forms each pair's 16 gradient rows, sums them over each warp (a warp
+// never spans the two segments) with shuffles and adds them with
+// atomicAdd: ~70 f32 operations per pair plus the reduction.
 // Both replay raster_common.cuh's rounded arithmetic, so every pixel dies
-// at the same instance as in B3a/B3b. B3c sums each staged batch's rows in
-// shared memory (raster_common.cuh's block-level reduction, as B2) and
-// flushes them with one atomicAdd per non-zero (instance, row); B3d sums
-// each instance's rows over each warp (a warp never spans the two
-// segments) with shuffles and adds them with atomicAdd. Both kernels add
-// into the same table. Sums in atomic order vary in the last bits.
-//
-// Bound on an H100: as B2, ~70 f32 operations per (pixel, instance) pair,
-// compute-bound, plus the atomics.
+// at the same instance as in B3a/B3b, and both add into the same table.
+// Sums in atomic order vary in the last bits.
 #include "raster_common.cuh"
 
 using namespace splat;
 
 constexpr int BCARRY_ROWS = 2;
 
-__global__ void __launch_bounds__(NPIX)
+__global__ void __launch_bounds__(NPIX, BWD_BLOCKS)
 split_int_bwd_kernel(const float* __restrict__ attrs,
                      const int* __restrict__ sorted_gid,
                      const int* __restrict__ int_ranges, int grid_x,
@@ -43,14 +47,16 @@ split_int_bwd_kernel(const float* __restrict__ attrs,
                      const float* __restrict__ g_color,
                      const float* __restrict__ g_aux,
                      float* __restrict__ grad, float* __restrict__ bcarry) {
-  extern __shared__ float s[];  // staged rows, chunk gids, s_acc
+  extern __shared__ float s[];  // rows, gids, sums apart, buffers
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
-  float* acc = bwd_acc(s, chunk);
+  float* apart = bwd_apart(s, chunk);
+  float* wbuf = bwd_wbuf(s, chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = int_ranges[2 * tile], end = int_ranges[2 * tile + 1];
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
+  const float tx = (float)((tile % grid_x) * TILE);
+  const float ty = (float)((tile / grid_x) * TILE);
+  const float px = tx + (float)(p % TILE), py = ty + (float)(p / TILE);
 
   float T = 1.0f;
   bool dead = false;
@@ -59,20 +65,15 @@ split_int_bwd_kernel(const float* __restrict__ attrs,
     float gcol[NFEAT], ga, gdep;
     grad_inputs(color, aux, g_color, g_aux, (int64_t)tile * NFEAT * NPIX + p,
                 gcol, ga, gdep);
+    MomentB m;
+    moment_operands(gcol, nfeat, m);
     for (int b = start; b < end; b += chunk) {
       const int n = min(chunk, end - b);
       stage_batch(s, s_gid, attrs, sorted_gid, b, n, chunk);
-      zero_acc(acc, chunk);
+      zero_apart(apart, chunk);
       __syncthreads();
-      for (int j = 0; j < n; ++j) {  // warp-uniform: shuffles need every lane
-        float v[ROWS];
-        const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep,
-                                      nfeat, carry_depth, T, dead, accw, v);
-        block_add_rows(v, contrib, j, chunk, acc);
-      }
-      __syncthreads();
-      flush_rows(acc, s_gid, n, chunk, nfeat, carry_depth, grad);
-      // also keeps the next batch's staging behind this flush
+      bwd_batch(s, s_gid, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gcol, ga,
+                gdep, nfeat, carry_depth, m, wbuf, apart, T, dead, accw, grad);
       if (__syncthreads_count(!dead) == 0) break;
     }
   }

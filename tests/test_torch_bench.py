@@ -343,9 +343,22 @@ def test_ablation_stages_match_jax(ablation_scene, chunk):
     ref = float((sc["opac"] * gop).sum())
     tol = 5e-5 * float(np.abs(sc["opac"] * gop).sum())
     assert abs(float(out["gc"].sum()) - ref) <= tol
-    # rows: the 16 rows of every pair, summed per pixel, are B2's table summed
-    assert abs(float(out["rows"].sum()) - float(full.sum())) <= (
-        1e-5 * float(full.abs().sum()))
+    # reduce: the block's sums read out per pixel, column p % 16; summed,
+    # the moment s0 of the gated d/dopacity plus the part added apart is
+    # B2's d/dopacity column, the feature sums its feature columns, and
+    # past them all is zero (no median depth, 3 features)
+    by_row = out["reduce"].reshape(-1, 16, 16).sum((0, 1))
+    for got, ref in ((by_row[0] + by_row[6], full[:, raster.ROW_OP]),
+                     *((by_row[raster.ROW_FEAT0 + f],
+                        full[:, raster.ROW_FEAT0 + f]) for f in range(3))):
+        assert abs(float(got) - float(ref.sum())) <= (
+            1e-5 * float(ref.abs().sum()))
+    assert not by_row[7].any() and not by_row[raster.ROW_FEAT0 + 3:].any()
+    # moments: the warps' mma sums over their own pixels add up to the
+    # block's moment and feature columns
+    sums = torch.cat([by_row[:6], by_row[raster.ROW_FEAT0:]])
+    assert abs(float(out["moments"].sum()) - float(sums.sum())) <= (
+        1e-5 * float(out["moments"].abs().sum()))
     # the staging stages see every batch's instances
     assert out["dma0"].eq(1).all()
     assert torch.equal(out["dma_lean"], out["dma_tile"])
