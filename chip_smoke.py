@@ -174,20 +174,20 @@ def golden_scenes():
 
 
 # screen means of far_contention's large gaussians: 100-600 px outside the
-# 64 x 48 image, which each still covers (tests/test_torch_raster.py)
+# 64 x 48 image, which each still covers
 FAR_UV = np.array([[-100, 10], [-250, 40], [-400, 20], [-600, 30], [214, 5],
                    [414, 45], [20, -120], [50, -300], [10, 248], [40, 548]],
                   np.float64)
 
 
 def small_scene(kind, seed=3):
-    """The saturating, empty and far_contention scenes of
-    tests/test_torch_raster.py, and the interior-only scene of
-    tests/test_pallas.py. far_contention stresses B2's and B3c's moment
-    form: FAR_UV's gaussians in front (their tile sums recombine from far
-    off-tile means), one in front of them all covering every tile (every
-    block adds to its row), and a stack of opaque 3-8 px gaussians that
-    saturates the two top-left tiles."""
+    """The saturating and empty scenes of tests/test_torch_raster.py, the
+    interior-only scene of tests/test_pallas.py, and far_contention (which
+    that raster test takes from here). far_contention stresses B2's and
+    B3c's moment form: FAR_UV's gaussians in front (their tile sums
+    recombine from far off-tile means), one in front of them all covering
+    every tile (every block adds to its row), and a stack of opaque 3-8 px
+    gaussians that saturates the two top-left tiles."""
     rng = np.random.default_rng(seed)
     if kind == "far_contention":
         n, w, h = 400, 64, 48

@@ -16,7 +16,7 @@
 // dies at the same instance and the tile exits at the same batch as in the
 // forward; instances past a saturated tile's exit add nothing.
 //
-// What bounds it on an H100: the f32 pipes that issue the per-pair work
+// What bounds it on an H100: the f32 pipes that run the per-pair work
 // the function needs (alpha and the replay, gc, dalpha, d/dopacity: ~56
 // operations and one exp per (pixel, instance) pair, in every pixel's
 // thread, in order). The first port then formed 16 gradient rows per pair

@@ -20,7 +20,7 @@
 // split hi + lo and 3xTF32: within 5e-5 of scale); the warps' sums reduced
 // over the block through shared slots, one barrier per sub-batch of 16
 // instances, and flushed with one global atomicAdd per non-zero (instance,
-// row). Like B2 it is bound by the f32 pipes that issue the per-pair
+// row). Like B2 it is bound by the f32 pipes that run the per-pair
 // replay.
 // B3d: one block per tail chunk, 2 x 256 threads, each half one segment
 // (rows [0, send) of tile_a, [send, lim) of tile_b), seeded from its

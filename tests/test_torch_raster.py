@@ -25,6 +25,7 @@ from splatam_torch.render.render_tiled import (
     rasterize_tiled_blocks,
 )
 
+from chip_smoke import FAR_UV, small_scene
 from tests.test_torch_geometry import NAMES, jax_scenes, torch_scene  # noqa: F401
 
 # tiny tensor ops: torch's intra-op thread pool costs more than it
@@ -48,43 +49,12 @@ def _jcam(w, h, k):
     return jsetup(w, h, k, np.eye(4))
 
 
-# screen means of far_contention's large gaussians: 100-600 px outside the
-# 64 x 48 image, which each still covers
-FAR_UV = np.array([[-100, 10], [-250, 40], [-400, 20], [-600, 30], [214, 5],
-                   [414, 45], [20, -120], [50, -300], [10, 248], [40, 548]],
-                  np.float64)
-
-
-def _far_contention(rng, n, w, h, f):
-    """The moment form's stress scene: FAR_UV's gaussians in front (their
-    tile sums recombine from far off-tile means), one in front of them all
-    covering every tile (every block adds to its row), and a stack of
-    opaque 3-8 px gaussians that saturates the two top-left tiles."""
-    cx, cy = w / 2, h / 2
-    z = rng.uniform(0.5, 6.0, n)
-    means = np.stack([(rng.uniform(0, 32, n) - cx) * z / f,
-                      (rng.uniform(0, 16, n) - cy) * z / f, z], -1)
-    scales = np.repeat((rng.uniform(3, 8, n) * z / f)[:, None], 3, 1)
-    opac = np.full(n, 0.95)
-    k = len(FAR_UV)
-    out = np.maximum(np.maximum(-FAR_UV[:, 0], FAR_UV[:, 0] - w),
-                     np.maximum(-FAR_UV[:, 1], FAR_UV[:, 1] - h))
-    zf = rng.uniform(1.0, 1.3, k)
-    means[:k] = np.stack([(FAR_UV[:, 0] - cx) * zf / f,
-                          (FAR_UV[:, 1] - cy) * zf / f, zf], -1)
-    scales[:k] = ((0.45 * out + 20) * zf / f)[:, None]  # alpha > 1/255 inside
-    opac[:k] = rng.uniform(0.3, 0.5, k)
-    means[k], scales[k], opac[k] = [0.0, 0.0, 0.45], 40 * 0.45 / f, 0.3
-    return means, opac, scales, np.tile([1.0, 0, 0, 0], (n, 1))
-
-
 def _scene(kind, seed=3):
     """numpy scene (means, feats, opacities, scales, quats, w, h, k)."""
+    if kind == "far_contention":  # the moment form's stress scene
+        return small_scene(kind, seed)
     rng = np.random.default_rng(seed)
-    if kind == "far_contention":
-        n, w, h = 400, 64, 48
-        means, opac, scales, quats = _far_contention(rng, n, w, h, w * 1.2)
-    elif kind == "saturating":  # opaque fronts: most tiles saturate early
+    if kind == "saturating":  # opaque fronts: most tiles saturate early
         n, w, h = 400, 64, 48
         means = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.7, 0.7, n),
                           rng.uniform(0.5, 6.0, n)], -1)
