@@ -615,4 +615,112 @@ __device__ __forceinline__ void bwd_batch(const float* s, const int* s_gid,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward of B1 (raster_fwd.cu) per warp sub-batch of SUB = 16 staged
+// instances. B3a and B3b keep fwd_range above.
+//
+// B1 stages a batch in its own layout (fwd_stage): the seven alpha and depth
+// rows at r * stride + j, as eval_pair reads them (stride: chunk rounded up
+// to SUB, the slots past n zero, so that a padded slot's alpha is 0), then
+// the eight features of instance j at fwd_feats(s, stride) + 8 j.
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_GEOM_ROWS = ROW_DEPTH + 1;  // x, y, conic a b c, opacity, depth
+
+__host__ __device__ inline int fwd_stride(int chunk) {
+  return (chunk + SUB - 1) / SUB * SUB;
+}
+
+template <typename F>
+__device__ __forceinline__ F* fwd_feats(F* s, int stride) {
+  return s + FWD_GEOM_ROWS * stride;
+}
+
+// Stage instances [b, b + n) of the sorted stream in B1's layout, gathered
+// by gid with one 16-byte load per (instance, quarter row), by every thread
+// of the block; slots [n, stride) get zeros. The (N, 16) table's rows are
+// 64 bytes, so a quarter is 16-byte aligned where the table is.
+__device__ __forceinline__ void fwd_stage(float* s,
+                                          const float* __restrict__ attrs,
+                                          const int* __restrict__ sorted_gid,
+                                          int b, int n, int stride) {
+  float* feat = fwd_feats(s, stride);
+  const int npad = (n + SUB - 1) / SUB * SUB;
+  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) {
+    const int j = i >> 2, q = i & 3;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (j < n)
+      v = reinterpret_cast<const float4*>(
+          attrs + (int64_t)sorted_gid[b + j] * ROWS)[q];
+    if (q == 0) {
+      s[ROW_X * stride + j] = v.x;
+      s[ROW_Y * stride + j] = v.y;
+      s[ROW_CA * stride + j] = v.z;
+      s[ROW_CB * stride + j] = v.w;
+    } else if (q == 1) {
+      s[ROW_CC * stride + j] = v.x;
+      s[ROW_OP * stride + j] = v.y;
+      s[ROW_DEPTH * stride + j] = v.z;  // v.w: the gid row, not needed
+    } else {
+      reinterpret_cast<float4*>(feat + 8 * j)[q - 2] = v;
+    }
+  }
+}
+
+// (a) The alphas of instances [jb, jb + SUB) for this pixel. They do not
+// depend on T, so the 16 eval_pair chains issue side by side.
+__device__ __forceinline__ void sub_alphas(const float* s, int jb, int stride,
+                                           float px, float py, float* al) {
+#pragma unroll
+  for (int jj = 0; jj < SUB; ++jj)
+    al[jj] = eval_pair(s, jb + jj, stride, px, py).alpha;
+}
+
+// (b) fwd_range's transmittance recursion over the sub-batch, in order and
+// in the same rounded arithmetic: turns al[jj] into w = alpha T, zero where
+// the pair adds nothing (alpha 0, the pixel dead, or dying at this
+// instance). Advances T, dead and the median-depth sum; returns whether any
+// pair contributed.
+__device__ __forceinline__ bool sub_scan(const float* s, int jb, int stride,
+                                         int carry_depth, float* al,
+                                         float& T, bool& dead, float& dsum) {
+  bool any = false;
+#pragma unroll
+  for (int jj = 0; jj < SUB; ++jj) {
+    const float a = al[jj];
+    float w = 0.0f;
+    if (!dead && a != 0.0f) {
+      const float test = __fmul_rn(T, __fsub_rn(1.0f, a));
+      if (test < T_STOP) {
+        dead = true;
+      } else {
+        w = __fmul_rn(a, T);
+        if (carry_depth && T > 0.5f && test < 0.5f)
+          dsum = __fadd_rn(dsum, s[ROW_DEPTH * stride + jb + jj]);
+        T = test;
+        any = true;
+      }
+    }
+    al[jj] = w;
+  }
+  return any;
+}
+
+// (c) The blend of the sub-batch into this pixel's 8 channels, in order,
+// where any lane of the warp has a non-zero w (every lane must call it).
+__device__ __forceinline__ void sub_blend(const float* s, int jb, int stride,
+                                          const float* w, float* acc) {
+  const float* feat = fwd_feats(s, stride) + 8 * jb;
+#pragma unroll
+  for (int jj = 0; jj < SUB; ++jj) {
+    if (!__any_sync(0xffffffffu, w[jj] != 0.0f)) continue;
+    const float4 f0 = reinterpret_cast<const float4*>(feat + 8 * jj)[0];
+    const float4 f1 = reinterpret_cast<const float4*>(feat + 8 * jj)[1];
+    const float fv[NFEAT] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+    for (int f = 0; f < NFEAT; ++f)
+      acc[f] = __fadd_rn(acc[f], __fmul_rn(w[jj], fv[f]));
+  }
+}
+
 }  // namespace splat

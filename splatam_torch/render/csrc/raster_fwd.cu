@@ -35,12 +35,13 @@ raster_fwd_kernel(const float* __restrict__ attrs,
                   const int* __restrict__ ranges, int grid_x, int chunk,
                   int carry_depth, float* __restrict__ color,
                   float* __restrict__ aux) {
-  extern __shared__ float s[];  // ROWS * chunk
+  extern __shared__ float s[];  // fwd_stage's layout
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
   const float py = (float)((tile / grid_x) * TILE + p / TILE);
+  const int stride = fwd_stride(chunk);
 
   float T = 1.0f;
   bool dead = false;
@@ -52,12 +53,18 @@ raster_fwd_kernel(const float* __restrict__ attrs,
 
   for (int b = start; b < end; b += chunk) {
     const int n = min(chunk, end - b);
-    __syncthreads();  // the previous batch is no longer read
-    stage_batch(s, nullptr, attrs, sorted_gid, b, n, chunk);
+    fwd_stage(s, attrs, sorted_gid, b, n, stride);
     __syncthreads();
-    fwd_range(s, 0, n, chunk, px, py, carry_depth, T, dead, acc, dsum);
+    for (int jb = 0; jb < n; jb += SUB) {  // warp-uniform
+      if (__all_sync(0xffffffffu, dead)) break;
+      float w[SUB];
+      sub_alphas(s, jb, stride, px, py, w);
+      sub_scan(s, jb, stride, carry_depth, w, T, dead, dsum);
+      sub_blend(s, jb, stride, w, acc);
+    }
+    // (also the barrier before the next batch's staging)
     if (__syncthreads_count(!dead) == 0) {
-      sat = max_depth(s, 0, n, chunk);
+      sat = max_depth(s, 0, n, stride);
       break;
     }
   }
@@ -70,7 +77,8 @@ extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
                           cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)ROWS * chunk * sizeof(float);
+  const size_t smem =
+      (size_t)(FWD_GEOM_ROWS + NFEAT) * fwd_stride(chunk) * sizeof(float);
   raster_fwd_kernel<<<num_tiles, NPIX, smem, stream>>>(
       attrs, sorted_gid, ranges, grid_x, chunk, carry_depth, color, aux);
   return (int)cudaGetLastError();

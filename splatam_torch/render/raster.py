@@ -270,6 +270,8 @@ def _check_grad_inputs(t, color, aux, g_color, g_aux, nfeat):
 def raster_fwd_cuda(attrs, sorted_gid, ranges, grid_x, chunk, carry_depth=True):
     """Launch B1. Returns (color, aux), each (T, 8, NPIX)."""
     _check_common(attrs, sorted_gid, ranges, chunk)
+    if attrs.data_ptr() % 16:  # B1 gathers the table's rows as float4s
+        raise ValueError("attrs must be 16-byte aligned")
     t = ranges.shape[0]
     color = torch.empty((t, NFEAT_PAD, NPIX), dtype=torch.float32,
                         device=attrs.device)
