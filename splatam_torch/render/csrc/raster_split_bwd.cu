@@ -82,7 +82,7 @@ split_int_bwd_kernel(const float* __restrict__ attrs,
   cr[NPIX] = accw;
 }
 
-__global__ void __launch_bounds__(2 * NPIX)
+__global__ void __launch_bounds__(NPIX, BWD_BLOCKS)
 split_tail_bwd_kernel(const float* __restrict__ attrs,
                       const int* __restrict__ sorted_gid,
                       const int* __restrict__ tmeta,
@@ -95,27 +95,27 @@ split_tail_bwd_kernel(const float* __restrict__ attrs,
                       const float* __restrict__ g_color,
                       const float* __restrict__ g_aux,
                       float* __restrict__ grad) {
-  extern __shared__ float s[];  // ROWS * chunk floats, then chunk gids
+  extern __shared__ float s[];  // rows, gids, sums apart, buffers
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
-  const int c = blockIdx.x;
-  const int seg = threadIdx.x / NPIX;  // 0: segment A, 1: segment B
-  const int p = threadIdx.x % NPIX;
+  float* apart = bwd_apart(s, chunk);
+  float* wbuf = bwd_wbuf(s, chunk);
+  const int c = blockIdx.x >> 1, seg = blockIdx.x & 1;  // 0: A, 1: B
+  const int p = threadIdx.x;
   const int sl = tsl[c];
   const int send = sl >> 16, lim = sl & 0xFFFF;
-  if (lim == 0) return;  // block-uniform: an empty chunk adds nothing
+  const int j0 = seg == 0 ? 0 : send, j1 = seg == 0 ? send : lim;
+  // block-uniform: an empty chunk, or the B half of a single-residue chunk
+  if (j0 >= j1) return;
   const int meta = seg == 0 ? tmeta[c] : tbt[c];
   const int tile = meta >> 1;
-  const int j0 = seg == 0 ? 0 : send, j1 = seg == 0 ? send : lim;
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
+  const float tx = (float)((tile % grid_x) * TILE);
+  const float ty = (float)((tile / grid_x) * TILE);
+  const float px = tx + (float)(p % TILE), py = ty + (float)(p / TILE);
+  const int n = j1 - j0;
 
-  stage_batch(s, s_gid, attrs, sorted_gid, tail_base + c * chunk, lim, chunk);
-  __syncthreads();
-  if (j0 >= j1) return;  // the B half of a single-residue chunk: whole warps
-
-  float gcol[NFEAT], ga, gdep;
-  grad_inputs(color, aux, g_color, g_aux, (int64_t)tile * NFEAT * NPIX + p,
-              gcol, ga, gdep);
+  stage_batch(s, s_gid, attrs, sorted_gid, tail_base + c * chunk + j0, n,
+              chunk);
+  zero_apart(apart, chunk);
   float T = 1.0f, accw = 0.0f;
   bool dead = false;
   if (meta & 1) {  // the tile has interior chunks: continue from its carry
@@ -124,12 +124,15 @@ split_tail_bwd_kernel(const float* __restrict__ attrs,
     T = fabsf(cr[0]);
     accw = cr[NPIX];
   }
-  for (int j = j0; j < j1; ++j) {  // warp-uniform: shuffles need every lane
-    float v[ROWS];
-    const bool contrib = bwd_pair(s, j, chunk, px, py, gcol, ga, gdep, nfeat,
-                                  carry_depth, T, dead, accw, v);
-    warp_add_rows(v, contrib, s_gid[j], grad);
-  }
+  // (also the barrier after the staging) a tile dead on entry adds nothing
+  if (__syncthreads_count(!dead) == 0) return;
+  float gcol[NFEAT], ga, gdep;
+  grad_inputs(color, aux, g_color, g_aux, (int64_t)tile * NFEAT * NPIX + p,
+              gcol, ga, gdep);
+  MomentB m;
+  moment_operands(gcol, nfeat, m);
+  bwd_batch(s, s_gid, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gcol, ga, gdep,
+            nfeat, carry_depth, m, wbuf, apart, T, dead, accw, grad);
 }
 
 extern "C" int raster_split_int_bwd(const float* attrs, const int* sorted_gid,
@@ -162,8 +165,10 @@ extern "C" int raster_split_tail_bwd(const float* attrs, const int* sorted_gid,
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (nfeat < 0 || nfeat > NFEAT) return (int)cudaErrorInvalidValue;
   if (num_tail == 0) return 0;
-  const size_t smem = (size_t)chunk * (ROWS * sizeof(float) + sizeof(int));
-  split_tail_bwd_kernel<<<num_tail, 2 * NPIX, smem, stream>>>(
+  const size_t smem = bwd_smem_bytes(chunk);
+  const int rc = allow_smem((const void*)split_tail_bwd_kernel, smem);
+  if (rc != 0) return rc;
+  split_tail_bwd_kernel<<<2 * num_tail, NPIX, smem, stream>>>(
       attrs, sorted_gid, tmeta, tsl, tbt, bcarry, tail_base, grid_x, chunk,
       nfeat, carry_depth, color, aux, g_color, g_aux, grad);
   return (int)cudaGetLastError();
