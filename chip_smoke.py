@@ -16,10 +16,12 @@ Phases, each of which must pass:
    ``tests/goldens``), a saturating scene, an empty scene, the far-mean
    and contention scene (``far_contention``: large gaussians whose means
    lie 100-600 px off the tiles they cover, one covering every tile, a
-   saturating stack), and ``bench.py``'s scene (200k gaussians at
-   1200x680) with the fused 6-channel mapping features; B3a-d also on an
-   interior-only scene. B2 and B3c also at chunk 256 and 512 (past 48 KB
-   of shared memory) on every scene. Each split kernel gets
+   saturating stack), the alpha-floor scene (``threshold``: faint wide
+   gaussians with op exp(power) within 2% of 1/255 at many pixels), and
+   ``bench.py``'s scene (200k gaussians at 1200x680) with the fused
+   6-channel mapping features; B3a-d also on an interior-only scene. B1,
+   B2, B3c and B3d also at chunk 256 and 512 (past 48 KB of shared memory
+   for the backward) on every scene. Each split kernel gets
    the plain version's inputs (carries included), and the composed split
    render and its gradients are held against B1/B2 on the same scene.
    Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5 against
@@ -101,9 +103,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 128
 FWD_ATOL, FWD_RTOL, FINAL_T_ATOL = 1e-5, 1e-4, 2e-5
 GRAD_TOL = 5e-5  # of the largest gradient magnitude (tests/test_pallas.py)
-# B2 and B3c are also held to their plain versions at these staged batches
-# (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's launch)
-BWD_CHUNKS = (256, 512)
+# B1, B2, B3c and B3d are also held to their plain versions at these staged
+# batches (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's launch)
+CHUNKS = (256, 512)
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W limit): f32
 # outside the tensor cores, and HBM bandwidth
 F32_PEAK_FLOPS = 67e12
@@ -182,14 +184,33 @@ FAR_UV = np.array([[-100, 10], [-250, 40], [-400, 20], [-600, 30], [214, 5],
 
 def small_scene(kind, seed=3):
     """The saturating and empty scenes of tests/test_torch_raster.py, the
-    interior-only scene of tests/test_pallas.py, and far_contention (which
-    that raster test takes from here). far_contention stresses B2's and
-    B3c's moment form: FAR_UV's gaussians in front (their tile sums
-    recombine from far off-tile means), one in front of them all covering
-    every tile (every block adds to its row), and a stack of opaque 3-8 px
-    gaussians that saturates the two top-left tiles."""
+    interior-only scene of tests/test_pallas.py, and far_contention and
+    threshold (which that raster test takes from here). far_contention
+    stresses the backward's moment form: FAR_UV's gaussians in front (their
+    tile sums recombine from far off-tile means), one in front of them all
+    covering every tile (every block adds to its row), and a stack of
+    opaque 3-8 px gaussians that saturates the two top-left tiles.
+    threshold holds alpha's 1/255 floor: 24 faint gaussians 40-80 px wide
+    over otherwise empty tiles (376 more lie behind the camera), their
+    opacities 0.99-1.03 x 1/255, so that
+    op exp(power) lies within 2% of 1/255 at ~12,000 (pixel, gaussian)
+    pairs over 97% of the pixels, ~650 of them within 1e-3 in power; T
+    stays above 0.98, and one pair wrongly kept or dropped moves its
+    pixel's final T by 0.4%."""
     rng = np.random.default_rng(seed)
-    if kind == "far_contention":
+    if kind == "threshold":
+        n, w, h, k = 400, 64, 48, 24  # the k faint gaussians in front
+        f, cx, cy = w * 1.2, w / 2, h / 2
+        z = rng.uniform(1.0, 3.0, n)
+        z[k:] = -z[k:]  # the rest behind the camera
+        uv = rng.uniform([-8.0, -6.0], [w + 8.0, h + 6.0], (n, 2))
+        means = np.stack([(uv[:, 0] - cx) * z / f, (uv[:, 1] - cy) * z / f,
+                          z], -1)
+        scales = np.repeat((rng.uniform(40, 80, n) * np.abs(z) / f)[:, None],
+                           3, 1)
+        opac = rng.uniform(0.99, 1.03, n) / 255
+        quats = np.tile([1.0, 0, 0, 0], (n, 1))
+    elif kind == "far_contention":
         n, w, h = 400, 64, 48
         f, cx, cy = w * 1.2, w / 2, h / 2
         z = rng.uniform(0.5, 6.0, n)
@@ -291,8 +312,9 @@ def phase_build():
 # substring of the mangled function name): P3's pass is 144 mma.sync per
 # 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
 # two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
-# mxu2ind) 144; B2's and B3c's warp sums 20 per sub-batch (4 k-steps x 2
-# moment and 3 feature passes), as P1's from `moments` on.
+# mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
+# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on; B1's
+# blend 12 per sub-batch (2 m-tiles x 2 k-steps x 3 passes).
 MIN_HMMA = {
     ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
     ("probe_ilp", "kernelILi3E"): 288,
@@ -300,6 +322,8 @@ MIN_HMMA = {
     ("probe_step", "kernelILi4E"): 144,
     ("raster_bwd", "raster_bwd_kernel"): 20,
     ("raster_split_bwd", "split_int_bwd_kernel"): 20,
+    ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
+    ("raster_fwd", "raster_fwd_kernel"): 12,
     ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
     ("probe_ablate", "kernelILi9E"): 20,
 }
@@ -618,21 +642,31 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     return out
 
 
-def compare_bwd_chunks(name, scene, dev, rng, errs, mapping_feats=False):
-    """B2 and B3c against their plain versions at the staged batches of
-    BWD_CHUNKS (the split binned at each), in the full and the narrowed
-    setting; both versions get the same forward outputs and cotangents."""
+def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
+    """B1, B2, B3c and B3d against their plain versions at the staged
+    batches of CHUNKS (the split binned at each), in the full and the
+    narrowed setting. B1 gets the plain forward's checks; B2 and B3c the
+    same forward outputs and cotangents as their plain versions; B3d the
+    plain B3c carry."""
     import torch
 
     from splatam_torch.render import raster
 
-    for chunk in BWD_CHUNKS:
+    for chunk in CHUNKS:
         al = scene_setup(scene, dev, mapping_feats, chunk=chunk)
         sp = scene_setup(scene, dev, mapping_feats, "split", chunk)
         b, gx = sp.binned, sp.grid_x
         for carry, nfeat in ((True, al.nfeat), (False, min(al.nfeat, 4))):
             tag = f"{name} chunk={chunk} carry_depth={carry}"
             c, a = raster.raster_fwd_cuda(*al.args, carry)
+            torch.cuda.synchronize()
+            c0, a0, _ = raster.raster_fwd_plain(*al.args, carry)
+            e1 = max(check_close(f"B1 {tag} color", c, c0, FWD_ATOL),
+                     check_close(f"B1 {tag} median depth", a[:, 0], a0[:, 0],
+                                 FWD_ATOL),
+                     check_close(f"B1 {tag} final T", a[:, 1], a0[:, 1],
+                                 FINAL_T_ATOL))
+            check_equal(f"B1 {tag} saturation depth", a[:, 2:], a0[:, 2:])
             g_color, g_aux = cotangents(c, a, nfeat, carry, rng)
             g1 = raster.raster_bwd_cuda(*al.args, c, a, g_color, g_aux, nfeat,
                                         carry)
@@ -654,11 +688,16 @@ def compare_bwd_chunks(name, scene, dev, rng, errs, mapping_feats=False):
                         FINAL_T_ATOL)
             check_grad(f"B3c {tag} carry prefix", bc1[:, 1], bc0[:, 1])
             check_equal(f"B3c {tag} carry death", bc1[:, 0] < 0, bc0[:, 0] < 0)
-            errs["B2"] = max(errs["B2"], e2)
-            errs["B3c"] = max(errs["B3c"], e3)
+            gt1 = raster.raster_split_tail_bwd_cuda(sp.attrs, b, bc0, *bargs)
+            torch.cuda.synchronize()
+            gt0 = raster.raster_split_tail_bwd_plain(sp.attrs, b, bc0, *bargs)
+            e4, s4 = check_grad(f"B3d {tag}", gt1, gt0)
+            for kname, e in (("B1", e1), ("B2", e2), ("B3c", e3), ("B3d", e4)):
+                errs[kname] = max(errs[kname], e)
             log(f"[kernels] {name:12s} chunk={chunk} carry_depth={carry!s:5s} "
-                f"nfeat={nfeat} B2 {e2:.3g}/{s2:.3g} B3c {e3:.3g}/{s3:.3g} "
-                f"(err/scale, limit {GRAD_TOL:g})")
+                f"nfeat={nfeat} B1 {e1:.3g} B2 {e2:.3g}/{s2:.3g} B3c "
+                f"{e3:.3g}/{s3:.3g} B3d {e4:.3g}/{s4:.3g} (NCt="
+                f"{b.tmeta.shape[0]}; err/scale, limit {GRAD_TOL:g})")
         del al, sp, b
         torch.cuda.empty_cache()
 
@@ -696,10 +735,11 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
         compare_fisher(name, al, outs[True][0], errs)
         compare_split_kernels(name, scene_setup(scene, dev, layout="split"),
                               al, rng, errs)
-        compare_bwd_chunks(name, scene, dev, rng, errs)
+        compare_chunks(name, scene, dev, rng, errs)
     log("[kernels] golden renders match tests/goldens")
     check_render_fisher("dense_aniso", golden_scenes()["dense_aniso"], dev)
-    for kind in ("saturating", "empty", "interior_only", "far_contention"):
+    for kind in ("saturating", "empty", "interior_only", "far_contention",
+                 "threshold"):
         al = scene_setup(small_scene(kind), dev)
         outs = compare_kernels(kind, al, rng, errs)
         if kind != "interior_only":
@@ -707,7 +747,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
         compare_split_kernels(kind, scene_setup(small_scene(kind), dev,
                                                 layout="split"),
                               al, rng, errs)
-        compare_bwd_chunks(kind, small_scene(kind), dev, rng, errs)
+        compare_chunks(kind, small_scene(kind), dev, rng, errs)
     # the 200k scene as the mapping loss renders it: isotropic scales,
     # sigmoid opacities, 6 fused channels
     from splatam_torch.bench.scene import make_scene
@@ -725,7 +765,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     bench_split = scene_setup(scene, dev, mapping_feats=True, layout="split")
     outs_split = compare_split_kernels("bench_200k", bench_split, bench, rng,
                                        errs)
-    compare_bwd_chunks("bench_200k", scene, dev, rng, errs, mapping_feats=True)
+    compare_chunks("bench_200k", scene, dev, rng, errs, mapping_feats=True)
     return errs, (bench, outs), (bench_split, outs_split)
 
 

@@ -51,7 +51,7 @@ def _jcam(w, h, k):
 
 def _scene(kind, seed=3):
     """numpy scene (means, feats, opacities, scales, quats, w, h, k)."""
-    if kind == "far_contention":  # the moment form's stress scene
+    if kind in ("far_contention", "threshold"):  # chip_smoke's stress scenes
         return small_scene(kind, seed)
     rng = np.random.default_rng(seed)
     if kind == "saturating":  # opaque fronts: most tiles saturate early
@@ -106,25 +106,29 @@ def test_forward_matches_goldens_and_jnp(name, jax_scenes):
     np.testing.assert_array_equal(out.radius.numpy(), g["radius"])
 
 
-GRAD_CASES = ["plain", "saturating", "narrowed", "empty", "far_contention"]
-WIDE = ("saturating", "narrowed", "far_contention")  # 400 gaussians, 6 channels
+GRAD_CASES = ["plain", "saturating", "narrowed", "empty", "far_contention",
+              "threshold"]
+WIDE = ("saturating", "narrowed", "far_contention", "threshold")  # 400
+# gaussians at 64 x 48, 6 channels: one JAX compile
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_grad(w, h):
     """jax.grad of sum(color * cot) + sum(final_t) + w_depth * sum(depth)
-    through the jnp path, one compile per image size: cases of one scene
-    size share it, with the cotangent and depth weight as arguments."""
+    through the jnp path, with the color and final T beside it, one compile
+    per image size: cases of one scene size share it, with the cotangent
+    and depth weight as arguments."""
     from splatam_tpu.render.render_tiled import rasterize_tiled as jrt
 
     jcam = _jcam(w, h, [[w * 1.2, 0, w / 2], [0, w * 1.2, h / 2], [0, 0, 1]])
 
     def jloss(means, feats, opac, scales, quats, cot, w_depth):
         out, _ = jrt(means, feats, opac, scales, quats, jcam, cfg=_jcfg())
-        return (jnp.sum(out.color * cot) + jnp.sum(out.final_t)
+        loss = (jnp.sum(out.color * cot) + jnp.sum(out.final_t)
                 + w_depth * jnp.sum(out.depth))
+        return loss, (out.color, out.final_t)
 
-    return jax.jit(jax.grad(jloss, argnums=tuple(range(5))))
+    return jax.jit(jax.grad(jloss, argnums=tuple(range(5)), has_aux=True))
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -144,7 +148,7 @@ def test_gradients_match_jax(case):
     use_depth = case != "narrowed"
 
     args = (means, feats, opac, scales, quats)
-    jg = _jax_grad(w, h)(*args, cot, np.float32(use_depth))
+    jg, (jcolor, jfinal_t) = _jax_grad(w, h)(*args, cot, np.float32(use_depth))
 
     cam = setup_camera(w, h, k, np.eye(4), device="cpu")
     ts = [torch.tensor(x, requires_grad=True) for x in args]
@@ -164,6 +168,12 @@ def test_gradients_match_jax(case):
     loss.backward()
     if case in ("saturating", "far_contention"):
         assert bool((res.aux[:, 2, 0] < raster.SAT_INF).any())
+    if case == "threshold":  # alpha's floor decides pairs: the forward too
+        assert 0.9 < float(aux[1].detach().min()) < 0.999
+        np.testing.assert_allclose(aux[1].detach().numpy(),
+                                   np.asarray(jfinal_t), atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(color.detach().numpy(), np.asarray(jcolor),
+                                   atol=1e-5, rtol=1e-4)
     if case == "far_contention":
         k = len(FAR_UV)
         uv = proj.means2d[:k].detach().numpy()
