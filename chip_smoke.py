@@ -51,7 +51,11 @@ Phases, each of which must pass:
    the output's largest magnitude) against their plain versions at the
    tools' default sizes; then each probe's run as the main path, with
    exact launch counts, printing the tools' tables and the rates against
-   the card's peaks.
+   the card's peaks. Then ``[fwd_stages]``: B1's stage probe
+   (``splatam_torch.bench.fwd_stages``: B1 and the per-pair design it
+   replaced, cut after each stage, and the blend in the TPU kernel's
+   product form on the tensor cores) on ``[timing]``'s B1 stream, its full
+   stages held to B1's plain version.
 6. The SLAM path: ``splatam_torch.run.synthetic_slam`` at Replica width
    (1200x680, tracking 40 / mapping 60 iterations, window 24, keyframe
    every 5, 60 frames), with every kernel's launch count set to 0 just
@@ -313,8 +317,9 @@ def phase_build():
 # 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
 # two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
 # mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
-# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on; B1's
-# blend 12 per sub-batch (2 m-tiles x 2 k-steps x 3 passes).
+# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on; the
+# B1 stage probe's `product` 12 per sub-batch (2 m-tiles x 2 k-steps x 3
+# passes).
 MIN_HMMA = {
     ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
     ("probe_ilp", "kernelILi3E"): 288,
@@ -323,7 +328,7 @@ MIN_HMMA = {
     ("raster_bwd", "raster_bwd_kernel"): 20,
     ("raster_split_bwd", "split_int_bwd_kernel"): 20,
     ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
-    ("raster_fwd", "raster_fwd_kernel"): 12,
+    ("probe_fwd", "sub_batch_kernelILi4E"): 12,
     ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
     ("probe_ablate", "kernelILi9E"): 20,
 }
@@ -1638,6 +1643,11 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     probe_entries, probe_launches = phase_probes(dev, bench_size, errs,
                                                  **(probes or {}))
     log(f"[probes] phase in {time.time() - t:.1f} s")
+    t = time.time()
+    from splatam_torch.bench import fwd_stages
+
+    fwd_stages.run(*bench_size)
+    log(f"[fwd_stages] phase in {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
     t = time.time()
     slam, launches, slam_state = phase_slam(frames, dev, **(slam_size or {}))

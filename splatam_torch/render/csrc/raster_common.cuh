@@ -706,122 +706,29 @@ __device__ __forceinline__ bool sub_scan(const float* s, int jb, int stride,
   return any;
 }
 
-// (c) The blend, on the tensor cores in the TPU kernel's product form
-// (color += w feats, pallas_raster.py:635): per warp and sub-batch,
-//   color[pixel, f] += sum_jj w[pixel, jj] feat[jb + jj, f]
-// with mma.sync m16n8k8 TF32: M the warp's 32 pixels (two m-tiles), K the
-// 16 instances (two k-steps), N the 8 channels. Each pixel's thread writes
-// its 16 w into a row of its warp's buffer (fwd_wbuf_put); the A fragments
-// come from there, the B fragments from the staged features. The color
-// stays in C fragments over the tile's whole range.
-//
-// Precision. TF32 keeps 11 significant bits, and a product of two TF32
-// values is exact in the f32 accumulator. w and the features are both split
-// hi + lo (split_tf32) and multiplied in three passes, lo hi, hi lo, hi hi
-// (3xTF32), so each product keeps ~21 significant bits; the dropped lo lo
-// term is ~2^-22 of it. A pixel's color is a convex sum of features (the
-// weights add up to 1 - T <= 1), so its error stays near 2^-20 of the
-// largest feature, against FWD_ATOL = 1e-5 + FWD_RTOL = 1e-4: one TF32
-// pass (~2^-11, 5e-4 relative) would not hold it. The sums add in another
-// order than the plain version's, so the color differs from it in the last
-// bits; T, the median depth and the saturation depth never touch the
-// product and stay bit for bit.
-
-constexpr int FWD_WBUF = 32 * SUB;  // floats per warp: (32 pixels, SUB)
-
-// Layout past B1's staged batch: the warps' w buffers (16-byte aligned,
-// as stride is a multiple of SUB).
-__host__ __device__ inline int fwd_wbuf_offset(int chunk) {
-  return (FWD_GEOM_ROWS + NFEAT) * fwd_stride(chunk);
+// (c) The blend of the sub-batch into this pixel's 8 channels, in order,
+// one fused multiply-add per channel, for each instance where any lane of
+// the warp has a non-zero w (every lane must call it; a zero w adds
+// nothing). The fused add rounds once where the plain version rounds the
+// product and the sum apart: the color differs from it in the last bits,
+// far inside FWD_ATOL / FWD_RTOL; T, the median depth and the saturation
+// depth do not touch the blend and stay bit for bit.
+__device__ __forceinline__ void sub_blend(const float* s, int jb, int stride,
+                                          const float* w, float* acc) {
+  const float* feat = fwd_feats(s, stride) + 8 * jb;
+#pragma unroll
+  for (int jj = 0; jj < SUB; ++jj) {
+    if (!__any_sync(0xffffffffu, w[jj] != 0.0f)) continue;
+    const float4 f0 = reinterpret_cast<const float4*>(feat + 8 * jj)[0];
+    const float4 f1 = reinterpret_cast<const float4*>(feat + 8 * jj)[1];
+    const float fv[NFEAT] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+    for (int f = 0; f < NFEAT; ++f) acc[f] = fmaf(w[jj], fv[f], acc[f]);
+  }
 }
 
 inline size_t fwd_smem_bytes(int chunk) {
-  return (size_t)(fwd_wbuf_offset(chunk) + NWARP * FWD_WBUF) * sizeof(float);
-}
-
-// A row's 16-byte quads are permuted by xor fwd_swz(row): with it a warp's
-// four 16-byte stores of its rows and each half-warp's 8-byte fragment
-// loads fall in distinct banks.
-__device__ __forceinline__ int fwd_swz(int row) {
-  return (row & 2) | ((row >> 2) & 1);
-}
-
-// Write this pixel's w of the sub-batch into row `lane` of its warp's
-// buffer. Within a k-step's 8 columns, instance kk sits at 2 (kk % 4) +
-// kk / 4, so that an A fragment's (k, k + 4) pair is one 8-byte load.
-__device__ __forceinline__ void fwd_wbuf_put(float* buf, const float* w) {
-  const int lane = threadIdx.x & 31;
-  float4* row = reinterpret_cast<float4*>(buf + lane * SUB);
-  const int sw = fwd_swz(lane);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {  // k-step q / 2, instances 2 (q % 2) + ...
-    const int k = 8 * (q >> 1) + 2 * (q & 1);
-    row[q ^ sw] = make_float4(w[k], w[k + 4], w[k + 1], w[k + 5]);
-  }
-}
-
-// The warp's product for one sub-batch, `feat` its staged features
-// (fwd_feats(s, stride) + 8 jb): 12 mma, the lo passes into cl, the hi hi
-// pass into ch. Entry i of m-tile mt's C fragment is pixel 16 mt + g +
-// 8 (i / 2) of the warp, channel 2t + i % 2 (g = lane / 4, t = lane % 4).
-// Every lane of the warp must call it, after a __syncwarp() that follows
-// every lane's fwd_wbuf_put.
-__device__ __forceinline__ void fwd_product(const float* buf,
-                                            const float* feat,
-                                            float (*ch)[4], float (*cl)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    // B fragment: instance 8 ks + t (+ 4), channel g; lanes (t, g) read
-    // 8 t + g: 32 distinct banks
-    uint32_t bh[2], bl[2];
-    split_tf32(feat[8 * (8 * ks + t) + g], bh[0], bl[0]);
-    split_tf32(feat[8 * (8 * ks + t + 4) + g], bh[1], bl[1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = 16 * mt + g;  // fwd_swz(r + 8) == fwd_swz(r)
-      const int off = 4 * ((2 * ks + (t >> 1)) ^ fwd_swz(r)) + 2 * (t & 1);
-      const float2 x0 = *reinterpret_cast<const float2*>(buf + r * SUB + off);
-      const float2 x1 =
-          *reinterpret_cast<const float2*>(buf + (r + 8) * SUB + off);
-      uint32_t ah[4], al[4];  // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-      split_tf32(x0.x, ah[0], al[0]);
-      split_tf32(x1.x, ah[1], al[1]);
-      split_tf32(x0.y, ah[2], al[2]);
-      split_tf32(x1.y, ah[3], al[3]);
-      mma_tf32(cl[mt], al, bh);
-      mma_tf32(cl[mt], ah, bl);
-      mma_tf32(ch[mt], ah, bh);
-    }
-  }
-}
-
-// Write the warp's color fragments into the tile's channel-major (8, NPIX)
-// block at `base` (= tile * 8 * NPIX).
-__device__ __forceinline__ void fwd_write_color(float* color, int64_t base,
-                                                const float (*ch)[4],
-                                                const float (*cl)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int p0 = (threadIdx.x & ~31) + g;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      color[base + (2 * t + (i & 1)) * NPIX + p0 + 16 * mt + 8 * (i >> 1)] =
-          ch[mt][i] + cl[mt][i];
-  }
-}
-
-// Write one pixel's aux rows into the tile's (8, NPIX) block at `base`
-// (= tile * 8 * NPIX + pixel): 0 median-depth sum, 1 final T, 2 saturation
-// depth, 3-7 zero.
-__device__ __forceinline__ void write_aux(float* aux, int64_t base,
-                                          float dsum, float T, float sat) {
-  aux[base] = dsum;
-  aux[base + NPIX] = T;
-  aux[base + 2 * NPIX] = sat;
-#pragma unroll
-  for (int r = 3; r < 8; ++r) aux[base + r * NPIX] = 0.0f;
+  return (size_t)(FWD_GEOM_ROWS + NFEAT) * fwd_stride(chunk) * sizeof(float);
 }
 
 }  // namespace splat

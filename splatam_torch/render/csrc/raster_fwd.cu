@@ -35,18 +35,19 @@ raster_fwd_kernel(const float* __restrict__ attrs,
                   const int* __restrict__ ranges, int grid_x, int chunk,
                   int carry_depth, float* __restrict__ color,
                   float* __restrict__ aux) {
-  extern __shared__ float s[];  // fwd_stage's layout, then the w buffers
+  extern __shared__ float s[];  // fwd_stage's layout
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
   const float py = (float)((tile / grid_x) * TILE + p / TILE);
   const int stride = fwd_stride(chunk);
-  float* wbuf = s + fwd_wbuf_offset(chunk) + (p >> 5) * FWD_WBUF;
 
   float T = 1.0f;
   bool dead = false;
-  float ch[2][4] = {}, cl[2][4] = {};  // the warp's color fragments
+  float acc[NFEAT];
+#pragma unroll
+  for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
   float dsum = 0.0f;
   float sat = SAT_INF;
 
@@ -58,12 +59,8 @@ raster_fwd_kernel(const float* __restrict__ attrs,
       if (__all_sync(0xffffffffu, dead)) break;
       float w[SUB];
       sub_alphas(s, jb, stride, px, py, w);
-      const bool any = sub_scan(s, jb, stride, carry_depth, w, T, dead, dsum);
-      if (!__any_sync(0xffffffffu, any)) continue;
-      fwd_wbuf_put(wbuf, w);
-      __syncwarp();
-      fwd_product(wbuf, fwd_feats(s, stride) + 8 * jb, ch, cl);
-      __syncwarp();  // the next sub-batch overwrites the buffer
+      sub_scan(s, jb, stride, carry_depth, w, T, dead, dsum);
+      sub_blend(s, jb, stride, w, acc);
     }
     // (also the barrier before the next batch's staging)
     if (__syncthreads_count(!dead) == 0) {
@@ -71,9 +68,7 @@ raster_fwd_kernel(const float* __restrict__ attrs,
       break;
     }
   }
-  const int64_t base = (int64_t)tile * NFEAT * NPIX;
-  fwd_write_color(color, base, ch, cl);
-  write_aux(aux, base + p, dsum, T, sat);
+  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
 }
 
 extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
@@ -82,10 +77,7 @@ extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
                           cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = fwd_smem_bytes(chunk);
-  const int rc = allow_smem((const void*)raster_fwd_kernel, smem);
-  if (rc != 0) return rc;
-  raster_fwd_kernel<<<num_tiles, NPIX, smem, stream>>>(
+  raster_fwd_kernel<<<num_tiles, NPIX, fwd_smem_bytes(chunk), stream>>>(
       attrs, sorted_gid, ranges, grid_x, chunk, carry_depth, color, aux);
   return (int)cudaGetLastError();
 }

@@ -65,7 +65,9 @@ NVCC_FLAGS = (
 KERNEL_SOURCES = ("raster_fwd", "raster_bwd", "raster_split_fwd",
                   "raster_split_bwd", "raster_fisher",
                   # the measurement probes P1-P4 (splatam_torch/bench/)
-                  "probe_ablate", "probe_ops", "probe_ilp", "probe_step")
+                  "probe_ablate", "probe_ops", "probe_ilp", "probe_step",
+                  # B1's stage probe (bench/fwd_stages.py; no TPU kernel)
+                  "probe_fwd")
 # per-tile carries of the split layout, channel-major (T, rows, NPIX)
 FWD_CARRY_ROWS = 3  # signed T (negative = dead), median-depth sum, sat cand
 BWD_CARRY_ROWS = 2  # signed T, running prefix of w * gc
@@ -130,7 +132,8 @@ def _library_path(name: str) -> Path:
 def build_kernels(names=KERNEL_SOURCES) -> dict:
     """Compile the named kernel sources that are not built yet, all at once
     (one nvcc per source, started together). Returns {name: compiler log}
-    for the sources it compiled; raises if any compile fails."""
+    for the sources it compiled, each log also kept beside its library
+    (``.log``); raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -148,6 +151,7 @@ def build_kernels(names=KERNEL_SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(name)
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError(

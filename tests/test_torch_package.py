@@ -36,6 +36,7 @@ def test_import_leaves_jax_out():
         "import splatam_torch.bench.__main__, splatam_torch.bench.profile\n"
         "import splatam_torch.bench.kernel_ablate, splatam_torch.bench.vpu_probe\n"
         "import splatam_torch.bench.ilp_probe, splatam_torch.bench.step_overhead\n"
+        "import splatam_torch.bench.fwd_stages\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -71,8 +72,8 @@ def _entry_points():
     from splatam_torch.utils.checkpoint import load_params
     from splatam_torch.realtime import realtime_slam
     from splatam_torch.run import realtime
-    from splatam_torch.bench import (ilp_probe, kernel_ablate, step_overhead,
-                                     vpu_probe)
+    from splatam_torch.bench import (fwd_stages, ilp_probe, kernel_ablate,
+                                     step_overhead, vpu_probe)
     from splatam_torch.bench.__main__ import main as bench_main
     from splatam_torch.bench.scene import setup as bench_setup
 
@@ -100,6 +101,7 @@ def _entry_points():
         "vpu_probe.main": lambda: vpu_probe.main(["--steps", "1"]),
         "ilp_probe.main": lambda: ilp_probe.main(["--steps", "1"]),
         "step_overhead.main": lambda: step_overhead.main(["--steps", "1"]),
+        "fwd_stages.main": lambda: fwd_stages.main(["--n", "10"]),
     }
 
 
@@ -108,7 +110,7 @@ def _entry_points():
              "offline_splatting", "post_splatam_opt", "load_params",
              "realtime_slam", "realtime.main", "bench.setup", "bench.main",
              "kernel_ablate.main", "vpu_probe.main", "ilp_probe.main",
-             "step_overhead.main"]
+             "step_overhead.main", "fwd_stages.main"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it
