@@ -10,9 +10,11 @@ fused multiply-adds. It runs on the stream that
 (``bench.scene.setup``) in the aligned layout at chunk 128, untrimmed,
 with the six mapping channels and no median depth. Successive differences
 price the stages (``product`` against ``scan``). Each design's ``blend``
-stage, and ``product``, is held to B1's plain version (color 1e-5 + 1e-4 rel, final T 2e-5, saturation depth exact)
-before it is timed. A measurement probe, not a port of a TPU kernel: it
-runs on no main path, and on the card only.
+stage, and ``product``, is held to B1's plain version (color 1e-5 + 1e-4
+rel, final T 2e-5, saturation depth exact) before it is timed;
+``warp_slots`` counts the work B1 does on the stream. A measurement probe,
+not a port of a TPU kernel: it runs on no main path, and on the card
+only.
 
 Usage: python -m splatam_torch.bench.fwd_stages [--iters 20] [--n N]
   [--w W] [--h H] [--chunk 128]
@@ -83,7 +85,8 @@ def registers(log: str) -> dict:
     the probe's build log."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\d+(per_pair|sub_batch)_kernelILi(\d)E", line)
+        m = re.search(
+            r"entry function '_Z\d+(per_pair|sub_batch)_kernelILi(\d)E", line)
         if m:
             key = (m.group(1), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
@@ -107,6 +110,49 @@ def blocks_per_sm(regs: int, smem: int) -> int:
     by_regs = 65536 // (8 * 256 * -(-regs * 32 // 256))
     by_smem = (228 * 1024) // (smem + 1024)
     return min(by_regs, by_smem, 2048 // raster.NPIX)
+
+
+def warp_slots(attrs, binned, grid_x, chunk) -> dict:
+    """B1's work on this stream as counts, from its plain version's
+    arithmetic (``raster._pairs``, ``raster._replay``): the (pixel,
+    instance) pairs evaluated and the share with alpha below 1/255; the
+    warp slots (a warp's 32 pixels and one instance, while any of its
+    pixels is alive; the tile stops after the batch in which its last
+    pixel died), the share in which some pixel adds to the blend, the
+    share in which no live pixel reaches 1/255, and the lane-pairs the
+    slots hold per evaluated pair; and the tile ranges' length (max, mean
+    over all tiles, p99)."""
+    t = binned.ranges.shape[0]
+    tiles = torch.arange(t, device=attrs.device)
+    px, py = raster._pixel_centers(tiles, grid_x)
+    trans, dead = attrs.new_ones((t, raster.NPIX)), torch.zeros(
+        (t, raster.NPIX), dtype=torch.bool, device=attrs.device)
+    stopped = torch.zeros(t, dtype=torch.bool, device=attrs.device)
+    n = dict(pairs=0, faint=0, slots=0, blend=0, none_live=0)
+    for rows, _, valid in raster._blocks(attrs, binned.sorted_gid,
+                                         binned.ranges, chunk):
+        alpha = raster._pairs(rows, px, py)[-1]
+        _, live, alive, trans, dead = raster._replay(alpha, trans, dead)
+        run = (valid & ~stopped[:, None])[..., None]  # (T, C, 1)
+        alive = alive & run
+        n["pairs"] += int(alive.sum())
+        n["faint"] += int((alive & (alpha == 0)).sum())
+        warp = (t, alive.shape[1], raster.NPIX // 32, 32)
+        slot = alive.reshape(warp).any(-1)
+        adds = (live & run & (alpha > 0)).reshape(warp).any(-1)
+        reach = (alive & (alpha > 0)).reshape(warp).any(-1)
+        n["slots"] += int(slot.sum())
+        n["blend"] += int(adds.sum())
+        n["none_live"] += int((slot & ~reach).sum())
+        stopped = stopped | (valid.any(1) & dead.all(1))
+    length = (binned.ranges[:, 1] - binned.ranges[:, 0]).float()
+    return dict(
+        n, faint_share=n["faint"] / max(n["pairs"], 1),
+        blend_share=n["blend"] / max(n["slots"], 1),
+        none_live_share=n["none_live"] / max(n["slots"], 1),
+        lane_pairs_per_pair=32 * n["slots"] / max(n["pairs"], 1),
+        range_max=int(length.max()), range_mean=float(length.mean()),
+        range_p99=float(torch.quantile(length, 0.99)))
 
 
 def run(n=200_000, w=1200, h=680, chunk=128, iters=20):
@@ -146,7 +192,15 @@ def run(n=200_000, w=1200, h=680, chunk=128, iters=20):
             print(f"[fwd_stages] {d:9s} {s:8s} {ms[d, s]:9.4f} {ns:9.1f} "
                   f"{delta:>8s} {r or '':>4} {occ:>9}  {WHAT[s]}", flush=True)
             prev["last"] = prev[s] = ns
-    return dict(ms, tiles=tiles)
+    c = warp_slots(attrs, binned, grid_x, chunk)
+    print(f"[fwd_stages] {c['pairs']} pairs evaluated, "
+          f"{c['faint_share']:.1%} with alpha below 1/255; {c['slots']} warp "
+          f"slots, {c['blend_share']:.1%} with a pixel that adds to the "
+          f"blend, {c['none_live_share']:.1%} with no live pixel at or above "
+          f"1/255, {c['lane_pairs_per_pair']:.3f} lane-pairs per evaluated "
+          f"pair; tile ranges max {c['range_max']}, mean "
+          f"{c['range_mean']:.1f}, p99 {c['range_p99']:.0f}", flush=True)
+    return dict(ms, tiles=tiles, counts=c)
 
 
 def main(argv=None):

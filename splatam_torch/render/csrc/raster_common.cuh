@@ -1,7 +1,8 @@
 // Shared per-(pixel, instance) arithmetic of the forward and backward
 // compositing kernels: aligned layout (raster_fwd.cu B1, raster_bwd.cu B2)
 // and split layout (raster_split_fwd.cu B3a/B3b, raster_split_bwd.cu
-// B3c/B3d); also of B2's stage-ablation probe (probe_ablate.cu P1).
+// B3c/B3d); also of the Fisher kernel (raster_fisher.cu B4) and the stage
+// probes of B2 (probe_ablate.cu P1) and B1 (probe_fwd.cu).
 //
 // Every operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
 // ...), which the compiler never contracts into an FMA. So both kernels
@@ -226,8 +227,8 @@ __device__ __forceinline__ bool bwd_pair(const float* s, int j, int chunk,
 }
 
 // Sum one instance's gradient rows over the warp with shuffles and add
-// them to its gaussian's row of the (N, 16) table (B3d, B4). Every lane of
-// the warp must call it for the same instance.
+// them to its gaussian's row of the (N, 16) table (B4). Every lane of the
+// warp must call it for the same instance.
 __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
                                               int gid, float* grad) {
   if (!__any_sync(0xffffffffu, contrib)) return;
@@ -246,11 +247,11 @@ __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
 }
 
 // ---------------------------------------------------------------------------
-// The backward of B2 (raster_bwd.cu) and B3c (raster_split_bwd.cu): the
-// pixel sums of each instance's gradient rows on the tensor cores, in the
-// TPU kernel's moment form (`_bwd_chunk_body`, pallas_raster.py:903-952),
-// and a block-level reduction of them. B3d and B4 keep bwd_pair and
-// warp_add_rows above.
+// The backward of B2 (raster_bwd.cu), B3c and B3d (raster_split_bwd.cu):
+// the pixel sums of each instance's gradient rows on the tensor cores, in
+// the TPU kernel's moment form (`_bwd_chunk_body`, pallas_raster.py:903-952),
+// and a block-level reduction of them. B4 keeps bwd_pair and warp_add_rows
+// above.
 //
 // Every pixel's thread walks the staged batch in order (pair_dpower: the
 // transmittance replay is sequential per pixel) and writes, for each
@@ -295,7 +296,7 @@ __device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
 // ---------------------------------------------------------------------------
 
 constexpr int NWARP = NPIX / 32;
-// blocks per SM a B2/B3c launch keeps room for (registers capped at 80 a
+// blocks per SM a B2/B3c/B3d launch keeps room for (registers capped at 80 a
 // thread; shared memory allows 3 up to chunk 256)
 constexpr int BWD_BLOCKS = 3;
 constexpr int SUB = 16;             // instances per warp sub-batch: mma's M
@@ -305,10 +306,10 @@ constexpr int WBUF = 2 * SUB * 32;  // floats per warp: dop, then w
 // was clamped and 7 the median-depth term, each added apart
 constexpr int COL_OP = 6, COL_DEPTH = 7, COL_FEAT0 = 8;
 
-// Layout of a B2/B3c block's dynamic shared memory, in floats: the staged
-// rows, the gids, the batch's two sums added apart (columns 6 and 7: one
-// row each), then (16-byte aligned, for the fragments' 8-byte loads) the
-// warps' sub-batch buffers.
+// Layout of a B2/B3c/B3d block's dynamic shared memory, in floats: the
+// staged rows, the gids, the batch's two sums added apart (columns 6 and 7:
+// one row each), then (16-byte aligned, for the fragments' 8-byte loads)
+// the warps' sub-batch buffers.
 __host__ __device__ inline int bwd_wbuf_offset(int chunk) {
   return (ROWS * chunk + 3 * chunk + 3) & ~3;
 }
@@ -625,7 +626,8 @@ __device__ __forceinline__ void bwd_batch(const float* s, const int* s_gid,
 // the eight features of instance j at fwd_feats(s, stride) + 8 j.
 // ---------------------------------------------------------------------------
 
-constexpr int FWD_GEOM_ROWS = ROW_DEPTH + 1;  // x, y, conic a b c, opacity, depth
+// x, y, the conic's a b c, opacity, depth
+constexpr int FWD_GEOM_ROWS = ROW_DEPTH + 1;
 
 __host__ __device__ inline int fwd_stride(int chunk) {
   return (chunk + SUB - 1) / SUB * SUB;

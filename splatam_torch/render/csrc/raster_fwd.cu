@@ -12,19 +12,42 @@
 // median depth is the depth where T crosses 0.5. After each batch the block
 // counts its live pixels with __syncthreads_count and the tile stops when
 // none is left. Outputs, channel-major:
-//   color (T, 8, 256): the 8 blended feature channels (no background)
+//   color (T, 8, 256): the 8 blended features (no background)
 //   aux   (T, 8, 256): row 0 median-depth sum (0 when carry_depth is 0),
 //                      row 1 final T, row 2 saturation depth (the largest
 //                      depth of the batch in which the tile's last pixel
 //                      died; 1e30 if it never saturated), rows 3-7 zero.
 //
-// Bound on an H100: the work is about 20 f32 operations and one exp for each
-// (pixel, instance) pair, 256 * K pairs for K instances composited before
-// the early exits; the bytes (the attribute rows, the gid stream, the two
-// (T, 8, 256) outputs) are small beside that, so it is compute-bound.
-// Left for later: cp.async/TMA staging overlapped with compositing (the
-// block now waits on every batch load), and batching the serial per-pixel
-// loop for more instruction-level parallelism.
+// What bounds it on an H100: the f32 pipes that run alpha, about 20
+// rounded operations and one exp per (pixel, instance) pair, 256 K pairs
+// for K instances composited before the early exits; the bytes (the
+// attribute rows, the gid stream, the two (T, 8, 256) outputs) are small
+// beside that. Each warp takes a staged batch in sub-batches of SUB = 16
+// instances (raster_common.cuh): (a) the 16 alphas, which do not depend on
+// T, issue side by side (sub_alphas), where the earlier design ran one
+// dependent chain per pair (shared loads, power, exp, test, branch) that
+// the compiler could not overlap across its early exits; (b) the
+// transmittance recursion runs over them in registers, in order and in
+// eval_pair's rounded arithmetic (sub_scan), so every pixel dies at the
+// same instance as in B2's replay and the plain version; (c) the blend adds
+// each instance where any lane of the warp contributes, one fused
+// multiply-add per channel (sub_blend). A warp whose pixels are all dead
+// skips the rest of the batch. The batch is staged for this: the seven
+// alpha and depth rows padded to a multiple of 16 with zero slots (alpha
+// 0), the features instance-major, with 16-byte loads (fwd_stage).
+//
+// The TPU kernel blends as a product on its matrix unit (`color_ref[0] +=
+// jax.lax.dot_general(feats, w, ...)`, pallas_raster.py:635). Its
+// counterpart here, a 3xTF32 mma.sync product per warp and sub-batch (w
+// and the features split hi + lo, three passes, 12 mma for 512 pairs, the
+// precision of f32), measured slower on this card than the fused
+// multiply-adds it would replace, which skip the 45% of warp slots where
+// no pixel reaches 1/255; bench/fwd_stages.py keeps both measurable. The
+// fused add rounds once where the plain version rounds twice, so the color
+// differs from it in the last bits (within 1e-5 + 1e-4 relative); T, the
+// median depth and the saturation depth are bit for bit. The kernel keeps
+// expf: __expf would break the backward's replay unless every kernel
+// changed with it.
 #include "raster_common.cuh"
 
 using namespace splat;

@@ -17,20 +17,26 @@
 // raster_common.cuh's bwd_batch): per pair only the gated d/dopacity and
 // w, kept in shared memory; the pixel sums as moments against the
 // tile-centred basis and feature sums on the tensor cores (mma.sync TF32,
-// split hi + lo and 3xTF32: within 5e-5 of scale); the warps' sums reduced
-// over the block through shared slots, one barrier per sub-batch of 16
-// instances, and flushed with one global atomicAdd per non-zero (instance,
-// row). Like B2 it is bound by the f32 pipes that run the per-pair
-// replay.
-// B3d: one block per tail chunk, 2 x 256 threads, each half one segment
-// (rows [0, send) of tile_a, [send, lim) of tile_b), seeded from its
-// tile's carry or from T = 1, prefix 0 where the tile has no interior. It
-// forms each pair's 16 gradient rows, sums them over each warp (a warp
-// never spans the two segments) with shuffles and adds them with
-// atomicAdd: ~70 f32 operations per pair plus the reduction.
-// Both replay raster_common.cuh's rounded arithmetic, so every pixel dies
-// at the same instance as in B3a/B3b, and both add into the same table.
-// Sums in atomic order vary in the last bits.
+// split hi + lo and 3xTF32: within 5e-5 of scale; raster_common.cuh says
+// why); the warps' sums reduced over the block through shared slots, one
+// barrier per sub-batch of 16 instances, and flushed with one global
+// atomicAdd per non-zero (instance, row). Like B2 it is bound by the f32
+// pipes that run the per-pair replay.
+// B3d: one 256-thread block per (tail chunk, segment), 2 NCt blocks: block
+// b is segment b % 2 of tail chunk b / 2 (rows [0, send) of tile_a, or
+// [send, lim) of tile_b). It stages only its segment's rows, seeds T,
+// death and the prefix from its tile's carry (T = 1, prefix 0 where the
+// tile has no interior), returns at once when the segment is empty (the B
+// half of a single-residue chunk) or every pixel entered dead, and runs
+// B3c's bwd_batch over the segment with its own tile's centre. The TPU
+// kernel `_bwd_kernel_tail` takes the same sums on its matrix unit: the
+// geometry rows as moments against a pixel basis (pallas_raster.py:1239),
+// the feature rows as products (:1309, :1365). The earlier design formed 16
+// gradient rows per pair and summed them over each warp with 80 shuffles
+// and up to 16 same-address global atomics per warp and instance; two
+// segments shared one 512-thread block, which a barrier per sub-batch
+// would deadlock on segments of unequal length, hence one block each.
+// Like B3c it is bound by the f32 pipes that run the per-pair replay.
 #include "raster_common.cuh"
 
 using namespace splat;

@@ -21,11 +21,12 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from splatam_torch.bench import ilp_probe, kernel_ablate, step_overhead, vpu_probe
+from splatam_torch.bench import (fwd_stages, ilp_probe, kernel_ablate,
+                                 step_overhead, vpu_probe)
 from splatam_torch.bench.__main__ import main as bench_main, measure
 from splatam_torch.bench.scene import parse_mode, setup
 from splatam_torch.render import raster
-from splatam_torch.render.binning import RasterConfig, bin_gaussians_csr
+from splatam_torch.render.binning import Binned, RasterConfig, bin_gaussians_csr
 from splatam_torch.render.geometry import preprocess
 from splatam_torch.render.render_tiled import blocks_to_image, image_to_blocks
 
@@ -365,6 +366,25 @@ def test_ablation_stages_match_jax(ablation_scene, chunk):
     assert (out["dma"] >= out["dma_lean"]).all()
 
 
+def test_fwd_warp_slots_count_the_plain_forward(ablation_scene):
+    """B1's stage probe counts the pairs B1's plain version evaluates, and
+    warp slots that hold them, on dense_aniso at chunk 64."""
+    sc = ablation_scene
+    binned = bin_gaussians_csr(sc["proj"], sc["cam"],
+                               RasterConfig(chunk=64, layout="aligned"),
+                               opacities=torch.tensor(sc["opac"]))
+    gx = (sc["cam"].image_width + 15) // 16
+    c = fwd_stages.warp_slots(sc["attrs"], binned, gx, 64)
+    _, _, evaluated = raster.raster_fwd_plain(
+        sc["attrs"], binned.sorted_gid, binned.ranges, gx, 64, False)
+    assert c["pairs"] == int(evaluated.sum()) > 0
+    assert 0 < c["faint"] < c["pairs"] <= 32 * c["slots"]
+    assert 0 < c["blend"] and c["blend"] + c["none_live"] <= c["slots"]
+    length = (binned.ranges[:, 1] - binned.ranges[:, 0]).numpy()
+    assert c["range_max"] == length.max()
+    np.testing.assert_allclose(c["range_mean"], length.mean(), rtol=1e-6)
+
+
 def test_probe_wrappers_refuse_cpu_tensors():
     """On a CPU tensor only the dispatchers run the plain versions: the
     kernel wrappers raise, and the entry points need CUDA unless asked."""
@@ -376,6 +396,12 @@ def test_probe_wrappers_refuse_cpu_tensors():
     stream, blk = step_overhead.inputs(2, "cpu")
     with pytest.raises(ValueError):
         step_overhead.step_cuda(stream, blk, "mxu")
-    for run in (vpu_probe.run, ilp_probe.run, step_overhead.run):
+    binned = Binned(torch.zeros(1, dtype=torch.int32),
+                    torch.zeros((1, 2), dtype=torch.int32), None, None, 0)
+    with pytest.raises(ValueError):
+        fwd_stages.stage_cuda("blend", "sub_batch", torch.zeros((1, 16)),
+                              binned, 1, 64)
+    for run in (vpu_probe.run, ilp_probe.run, step_overhead.run,
+                fwd_stages.run):
         with pytest.raises(RuntimeError):
             run()
