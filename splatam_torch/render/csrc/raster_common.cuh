@@ -9,7 +9,11 @@
 // evaluate alpha and the transmittance recursion bit for bit alike (the
 // backward replays the forward's pixel deaths exactly), and bit for bit like
 // the plain PyTorch version in render/raster.py, which rounds after every
-// tensor op. Only expf may differ from torch.exp in the last place.
+// tensor op. Only expf may differ from torch.exp in the last place. The
+// sums of the blend and of the backward's pixel sums are taken in other
+// orders (B1's fused multiply-adds, the tensor cores' products) and differ
+// from the plain version's in the last bits; no sum feeds back into alpha,
+// T or a pixel's death.
 #pragma once
 
 #include <cuda_runtime.h>
