@@ -9,7 +9,7 @@ Phases, each of which must pass:
    and B3c/B3d ``csrc/raster_split_bwd.cu``; the Fisher moments B4
    ``csrc/raster_fisher.cu``; the measurement probes P1-P4
    ``csrc/probe_ablate.cu``, ``probe_ops.cu``, ``probe_ilp.cu``,
-   ``probe_step.cu``. Print the toolchain (and whether Triton imports) and
+   ``probe_step.cu``, and B1's stage probe ``probe_fwd.cu``. Print the toolchain (and whether Triton imports) and
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
@@ -52,10 +52,9 @@ Phases, each of which must pass:
    tools' default sizes; then each probe's run as the main path, with
    exact launch counts, printing the tools' tables and the rates against
    the card's peaks. Then ``[fwd_stages]``: B1's stage probe
-   (``splatam_torch.bench.fwd_stages``: B1 and the per-pair design it
-   replaced, cut after each stage, and the blend in the TPU kernel's
-   product form on the tensor cores) on ``[timing]``'s B1 stream, its full
-   stages held to B1's plain version.
+   (``splatam_torch.bench.fwd_stages``: B1 cut after each stage, built
+   from B1's helpers) on ``[timing]``'s B1 stream, its last stage held to
+   B1's plain version.
 6. The SLAM path: ``splatam_torch.run.synthetic_slam`` at Replica width
    (1200x680, tracking 40 / mapping 60 iterations, window 24, keyframe
    every 5, 60 frames), with every kernel's launch count set to 0 just
@@ -317,9 +316,7 @@ def phase_build():
 # 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
 # two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
 # mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
-# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on; the
-# B1 stage probe's `product` 12 per sub-batch (2 m-tiles x 2 k-steps x 3
-# passes).
+# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on.
 MIN_HMMA = {
     ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
     ("probe_ilp", "kernelILi3E"): 288,
@@ -328,7 +325,6 @@ MIN_HMMA = {
     ("raster_bwd", "raster_bwd_kernel"): 20,
     ("raster_split_bwd", "split_int_bwd_kernel"): 20,
     ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
-    ("probe_fwd", "sub_batch_kernelILi4E"): 12,
     ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
     ("probe_ablate", "kernelILi9E"): 20,
 }

@@ -1,28 +1,26 @@
 """B1's stage table: the forward pass taken apart stage by stage.
 
-Kernel ``render/csrc/probe_fwd.cu`` runs B1's pass cut after each stage of
-``STAGES`` (staging, + alpha, + scan, + blend), in B1's sub-batched design
-and in the per-pair design it replaced (``DESIGNS``); for the sub-batched
-design also ``product``: the scan, then the blend in the TPU kernel's
-product form on the tensor cores (3xTF32 ``mma.sync``) in place of B1's
-fused multiply-adds. It runs on the stream that
-``chip_smoke.py``'s ``[timing]`` gives B1: the benchmark's scene
-(``bench.scene.setup``) in the aligned layout at chunk 128, untrimmed,
-with the six mapping channels and no median depth. Successive differences
-price the stages (``product`` against ``scan``). Each design's ``blend``
-stage, and ``product``, is held to B1's plain version (color 1e-5 + 1e-4
-rel, final T 2e-5, saturation depth exact) before it is timed;
-``warp_slots`` counts the work B1 does on the stream. A measurement probe,
-not a port of a TPU kernel: it runs on no main path, and on the card
-only.
+Kernel ``render/csrc/probe_fwd.cu`` runs B1's pass, built from B1's own
+helpers, cut after each stage of ``STAGES`` (staging, + alpha, + scan,
++ blend = B1). It runs on the stream that ``chip_smoke.py``'s
+``[timing]`` gives B1: the benchmark's scene (``bench.scene.setup``) in
+the aligned layout at chunk ``CHUNK``, untrimmed, with the six mapping
+channels and no median depth. Successive differences price the stages;
+each stage's registers per thread and resident blocks per SM are the
+runtime's (``cudaFuncGetAttributes``,
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The ``blend`` stage
+is held to B1's plain version (color 1e-5 + 1e-4 rel, final T 2e-5,
+saturation depth exact) before it is timed; ``warp_slots`` counts the
+work B1 does on the stream. A measurement probe, not a port of a TPU
+kernel: it runs on no main path, and on the card only.
 
 Usage: python -m splatam_torch.bench.fwd_stages [--iters 20] [--n N]
-  [--w W] [--h H] [--chunk 128]
+  [--w W] [--h H]
 """
 from __future__ import annotations
 
 import argparse
-import re
+import ctypes
 
 import torch
 
@@ -30,26 +28,23 @@ from splatam_torch.bench.scene import setup
 from splatam_torch.bench.timing import device_name, time_ms
 from splatam_torch.render import raster
 
-STAGES = ("staging", "alpha", "scan", "blend", "product")
-DESIGNS = ("per_pair", "sub_batch")
-SUB = 16  # B1's warp sub-batch (raster_common.cuh)
+STAGES = ("staging", "alpha", "scan", "blend")
+CHUNK = 128  # probe_fwd.cu's CHUNK
 WHAT = {
     "staging": "every batch staged into shared memory",
     "alpha": "eval_pair's alpha, every pair of the range",
     "scan": "transmittance, pixel death, the tile's exit",
     "blend": "the 8-channel blend: B1",
-    "product": "scan, then the blend as 3xTF32 mma.sync",
 }
-# probe_fwd(attrs, gid, ranges, num_tiles, grid_x, chunk, carry_depth,
-#           stage, per_pair, color, aux, stream)
-PROBE_KERNEL = raster.CudaKernel("probe_fwd", "probe_fwd", 3, 6, 2)
+# probe_fwd(attrs, gid, ranges, num_tiles, grid_x, stage, color, aux, stream)
+PROBE_KERNEL = raster.CudaKernel("probe_fwd", "probe_fwd", 3, 3, 2)
 
 
-def stage_cuda(stage: str, design: str, attrs, binned, grid_x, chunk):
-    """Launch the probe's ``stage`` of ``design`` (no median depth).
+def stage_cuda(stage: str, attrs, binned, grid_x):
+    """Launch the probe's ``stage`` at chunk CHUNK (no median depth).
     Returns (color, aux), each (T, 8, NPIX); before ``blend`` color row 0
-    holds the stage's per-pixel sum and the other rows are not written."""
-    raster._check_common(attrs, binned.sorted_gid, binned.ranges, chunk)
+    holds the stage's per-pixel sum and the other rows are zero."""
+    raster._check_common(attrs, binned.sorted_gid, binned.ranges, CHUNK)
     if attrs.data_ptr() % 16:
         raise ValueError("attrs must be 16-byte aligned")
     t = binned.ranges.shape[0]
@@ -57,59 +52,34 @@ def stage_cuda(stage: str, design: str, attrs, binned, grid_x, chunk):
     aux = torch.empty_like(color)
     PROBE_KERNEL.launch(
         attrs.device, attrs.data_ptr(), binned.sorted_gid.data_ptr(),
-        binned.ranges.data_ptr(), t, grid_x, chunk, 0, STAGES.index(stage),
-        int(design == "per_pair"), color.data_ptr(), aux.data_ptr())
+        binned.ranges.data_ptr(), t, grid_x, STAGES.index(stage),
+        color.data_ptr(), aux.data_ptr())
     return color, aux
 
 
-def stages_of(design: str):
-    return STAGES if design == "sub_batch" else STAGES[:-1]
+def check_blend(attrs, binned, grid_x):
+    """Hold the ``blend`` stage to B1's plain version."""
+    c0, a0, _ = raster.raster_fwd_plain(attrs, binned.sorted_gid,
+                                        binned.ranges, grid_x, CHUNK, False)
+    c1, a1 = stage_cuda("blend", attrs, binned, grid_x)
+    if not (torch.allclose(c1, c0, atol=1e-5, rtol=1e-4)
+            and torch.allclose(a1[:, 1], a0[:, 1], atol=2e-5, rtol=1e-4)
+            and torch.equal(a1[:, 2:], a0[:, 2:])):
+        raise RuntimeError("probe_fwd blend: differs from B1's plain version")
 
 
-def check_full(stage: str, design: str, attrs, binned, grid_x, chunk):
-    """Hold ``design``'s ``stage`` (blend or product) to B1's plain
-    version."""
-    args = (attrs, binned.sorted_gid, binned.ranges, grid_x, chunk, False)
-    c0, a0, _ = raster.raster_fwd_plain(*args)
-    c1, a1 = stage_cuda(stage, design, attrs, binned, grid_x, chunk)
-    ok = (torch.allclose(c1, c0, atol=1e-5, rtol=1e-4)
-          and torch.allclose(a1[:, 1], a0[:, 1], atol=2e-5, rtol=1e-4)
-          and torch.equal(a1[:, 2:], a0[:, 2:]))
-    if not ok:
-        raise RuntimeError(f"probe_fwd {design} {stage}: differs from B1's "
-                           "plain version")
-
-
-def registers(log: str) -> dict:
-    """{(design, stage index): registers per thread} from ptxas' report in
-    the probe's build log."""
-    out, key = {}, None
-    for line in log.splitlines():
-        m = re.search(
-            r"entry function '_Z\d+(per_pair|sub_batch)_kernelILi(\d)E", line)
-        if m:
-            key = (m.group(1), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and key is not None:
-            out[key], key = int(m.group(1)), None
-    return out
-
-
-def sub_batch_smem(chunk: int, product: bool) -> int:
-    """Bytes of shared memory of a sub_batch block (raster_common.cuh's
-    fwd_smem_bytes): 15 staged rows of chunk rounded up to 16; for
-    ``product`` then the eight warps' (32, 16) w buffers."""
-    stride = -(-chunk // SUB) * SUB
-    return (15 * stride + (8 * 32 * SUB if product else 0)) * 4
-
-
-def blocks_per_sm(regs: int, smem: int) -> int:
-    """Resident 256-thread blocks per SM of an H100 (65,536 registers,
-    allocated per warp in units of 256; 228 KB of shared memory, 1 KB of
-    it reserved per block; 2,048 threads)."""
-    by_regs = 65536 // (8 * 256 * -(-regs * 32 // 256))
-    by_smem = (228 * 1024) // (smem + 1024)
-    return min(by_regs, by_smem, 2048 // raster.NPIX)
+def occupancy(stage: str) -> tuple[int, int]:
+    """(registers per thread, resident blocks per SM) of ``stage``'s
+    kernel on the current card, from the CUDA runtime."""
+    PROBE_KERNEL._entry()  # builds the library
+    fn = ctypes.CDLL(str(raster._library_path("probe_fwd"))).probe_fwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = fn(STAGES.index(stage), ctypes.byref(regs), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"probe_fwd_occupancy: CUDA error {rc}")
+    return regs.value, blocks.value
 
 
 def warp_slots(attrs, binned, grid_x, chunk) -> dict:
@@ -155,44 +125,34 @@ def warp_slots(attrs, binned, grid_x, chunk) -> dict:
         range_p99=float(torch.quantile(length, 0.99)))
 
 
-def run(n=200_000, w=1200, h=680, chunk=128, iters=20):
-    """Time every stage of both designs. Prints the table; returns
-    {(design, stage): ms per pass} with the tile count under ``"tiles"``."""
-    prog = setup(f"aligned+c{chunk}+notrim", n=n, w=w, h=h)
+def run(n=200_000, w=1200, h=680, iters=20):
+    """Time every stage. Prints the table; returns {stage: ms per pass}
+    with the tile count under ``"tiles"`` and ``warp_slots``' counts under
+    ``"counts"``."""
+    prog = setup(f"aligned+c{CHUNK}+notrim", n=n, w=w, h=h)
     attrs, binned, grid_x = prog.stream_inputs()
     dev = attrs.device
     tiles = binned.ranges.shape[0]
-    raster.build_kernels(("probe_fwd",))
-    regs = registers(
-        raster._library_path("probe_fwd").with_suffix(".log").read_text())
-    for d in DESIGNS:
-        for s in stages_of(d)[3:]:
-            check_full(s, d, attrs, binned, grid_x, chunk)
-    ms = {(d, s): time_ms(lambda d=d, s=s: stage_cuda(s, d, attrs, binned,
-                                                      grid_x, chunk),
-                          iters, dev)
-          for d in DESIGNS for s in stages_of(d)}
+    check_blend(attrs, binned, grid_x)
+    ms = {s: time_ms(lambda s=s: stage_cuda(s, attrs, binned, grid_x),
+                     iters, dev)
+          for s in STAGES}
     print(f"[fwd_stages] {device_name(dev)}: B1 stage ablation, {n} gaussians "
-          f"at {w}x{h}, aligned, chunk {chunk}, untrimmed, "
+          f"at {w}x{h}, aligned, chunk {CHUNK}, untrimmed, "
           f"K={binned.num_instances}, {tiles} tile blocks, {iters} passes",
           flush=True)
-    print(f"[fwd_stages] {'design':9s} {'stage':8s} {'ms/pass':>9s} "
-          f"{'ns/block':>9s} {'delta':>8s} {'regs':>4s} {'blocks/SM':>9s}  "
-          "what the stage adds", flush=True)
-    for d in DESIGNS:
-        prev = {}
-        for s in stages_of(d):
-            smem = (raster.ROWS * chunk * 4 if d == "per_pair"
-                    else sub_batch_smem(chunk, s == "product"))
-            ns = ms[d, s] * 1e6 / tiles
-            base = prev.get("scan" if s == "product" else "last")
-            delta = "" if base is None else f"{ns - base:+8.1f}"
-            r = regs.get((d, STAGES.index(s)))
-            occ = "" if r is None else blocks_per_sm(r, smem)
-            print(f"[fwd_stages] {d:9s} {s:8s} {ms[d, s]:9.4f} {ns:9.1f} "
-                  f"{delta:>8s} {r or '':>4} {occ:>9}  {WHAT[s]}", flush=True)
-            prev["last"] = prev[s] = ns
-    c = warp_slots(attrs, binned, grid_x, chunk)
+    print(f"[fwd_stages] {'stage':8s} {'ms/pass':>9s} {'ns/block':>9s} "
+          f"{'delta':>8s} {'regs':>4s} {'blocks/SM':>9s}  what the stage adds",
+          flush=True)
+    prev = None
+    for s in STAGES:
+        ns = ms[s] * 1e6 / tiles
+        delta = "" if prev is None else f"{ns - prev:+8.1f}"
+        regs, blocks = occupancy(s)
+        print(f"[fwd_stages] {s:8s} {ms[s]:9.4f} {ns:9.1f} {delta:>8s} "
+              f"{regs:4d} {blocks:9d}  {WHAT[s]}", flush=True)
+        prev = ns
+    c = warp_slots(attrs, binned, grid_x, CHUNK)
     print(f"[fwd_stages] {c['pairs']} pairs evaluated, "
           f"{c['faint_share']:.1%} with alpha below 1/255; {c['slots']} warp "
           f"slots, {c['blend_share']:.1%} with a pixel that adds to the "
@@ -209,9 +169,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=200_000)
     ap.add_argument("--w", type=int, default=1200)
     ap.add_argument("--h", type=int, default=680)
-    ap.add_argument("--chunk", type=int, default=128)
     args = ap.parse_args(argv)
-    return run(args.n, args.w, args.h, args.chunk, args.iters)
+    return run(args.n, args.w, args.h, args.iters)
 
 
 if __name__ == "__main__":

@@ -1,175 +1,50 @@
-// B1's stage probe, for sm_90a: the forward pass of B1 (raster_fwd.cu) cut
-// after each stage, in two designs, so that the differences between
-// successive stages price them on a real stream:
-//
-//   sub_batch  B1 as it is: per warp sub-batch of SUB = 16 instances, the
-//              16 alphas side by side (sub_alphas), the transmittance scan
-//              over them in registers (sub_scan), the blend as fused
-//              multiply-adds (sub_blend); B1's staging layout (fwd_stage)
-//   per_pair   the design it replaced: one dependent chain per (pixel,
-//              instance) pair, alpha, test, weight and an 8-channel
-//              rounded blend, in fwd_range; stage_batch's 16-row staging
-//
-// and the stages, each a superset of the one before:
+// B1's stage probe, for sm_90a: B1's pass (raster_fwd.cu) cut after each
+// stage and built from B1's own helpers (raster_common.cuh), so that the
+// differences between successive stages price them on a real stream. The
+// stages, each a superset of the one before:
 //
 //   staging  every batch of the tile's range staged into shared memory
-//   alpha    + eval_pair's alpha of every pair of the range (nothing dies)
-//   scan     + the transmittance recursion, pixel death, the median-depth
-//              crossing and the tile's exit once every pixel is dead
-//   blend    + the blend into the 8 channels: B1 itself (sub_batch), or
-//              B1's earlier per-pair design (per_pair)
-//   product  (sub_batch only) scan, then the blend in the TPU kernel's
-//              product form on the tensor cores instead of sub_blend:
-//              3xTF32 mma.sync, 12 per warp and sub-batch (below)
+//            (fwd_stage)
+//   alpha    + the alpha of every pair of the range, a warp sub-batch of
+//              FWD_SUB at a time side by side (sub_alphas; nothing dies)
+//   scan     + the transmittance recursion, pixel death and the tile's
+//              exit once every pixel is dead (sub_scan)
+//   blend    + the blend into the 8 channels (sub_blend): B1's loop
 //
 // It is a measurement probe, not a port of a TPU kernel, and runs on no
-// main path: splatam_torch/bench/fwd_stages.py times it and holds the
-// `blend` and `product` stages to B1's plain version.
+// main path: splatam_torch/bench/fwd_stages.py times it at chunk CHUNK
+// with no median depth, and holds `blend` to B1's plain version. The
+// kernels take the chunk as a launch argument, as B1 does, so that each
+// stage compiles as B1's loop does (a chunk known to the compiler saves
+// registers B1 cannot).
 //
 // A truncated stage must not be dead code, so it sums its last quantity
-// per pixel (a staged value, sum alpha, sum w) into color row 0 and writes
-// B1's aux rows; `blend` and `product` write B1's outputs.
+// per pixel (a staged value, sum alpha, sum w) into color row 0; every
+// stage writes B1's aux rows.
 #include "raster_common.cuh"
 
 using namespace splat;
 
-enum Stage { STAGING, ALPHA, SCAN, BLEND, PRODUCT, NSTAGES };
-
-// The blend in the TPU kernel's product form (color += w feats,
-// pallas_raster.py:635), on the tensor cores: per warp and sub-batch,
-//   color[pixel, f] += sum_jj w[pixel, jj] feat[jb + jj, f]
-// with mma.sync m16n8k8 TF32: M the warp's 32 pixels (two m-tiles), K the
-// 16 instances (two k-steps), N the 8 channels. Each pixel's thread writes
-// its 16 w into a row of its warp's buffer (fwd_wbuf_put); the A fragments
-// come from there, the B fragments from the staged features. The color
-// stays in C fragments over the tile's whole range.
-//
-// Precision. TF32 keeps 11 significant bits, and a product of two TF32
-// values is exact in the f32 accumulator. w and the features are both split
-// hi + lo (split_tf32) and multiplied in three passes, lo hi, hi lo, hi hi
-// (3xTF32), so each product keeps ~21 significant bits; the dropped lo lo
-// term is ~2^-22 of it. A pixel's color is a convex sum of features (the
-// weights add up to 1 - T <= 1), so its error stays near 2^-20 of the
-// largest feature, against FWD_ATOL = 1e-5 + FWD_RTOL = 1e-4: one TF32
-// pass (~2^-11, 5e-4 relative) would not hold it. The sums add in another
-// order than the plain version's, so the color differs from it in the last
-// bits; T, the median depth and the saturation depth never touch the
-// product and stay bit for bit.
-
-constexpr int FWD_WBUF = 32 * SUB;  // floats per warp: (32 pixels, SUB)
-
-// The warps' w buffers follow B1's staged batch (16-byte aligned, as the
-// stride is a multiple of SUB).
-inline size_t product_smem_bytes(int chunk) {
-  return fwd_smem_bytes(chunk) + NWARP * FWD_WBUF * sizeof(float);
-}
-
-// A row's 16-byte quads are permuted by xor fwd_swz(row): with it a warp's
-// four 16-byte stores of its rows and each half-warp's 8-byte fragment
-// loads fall in distinct banks.
-__device__ __forceinline__ int fwd_swz(int row) {
-  return (row & 2) | ((row >> 2) & 1);
-}
-
-// Write this pixel's w of the sub-batch into row `lane` of its warp's
-// buffer. Within a k-step's 8 columns, instance kk sits at 2 (kk % 4) +
-// kk / 4, so that an A fragment's (k, k + 4) pair is one 8-byte load.
-__device__ __forceinline__ void fwd_wbuf_put(float* buf, const float* w) {
-  const int lane = threadIdx.x & 31;
-  float4* row = reinterpret_cast<float4*>(buf + lane * SUB);
-  const int sw = fwd_swz(lane);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {  // k-step q / 2, instances 2 (q % 2) + ...
-    const int k = 8 * (q >> 1) + 2 * (q & 1);
-    row[q ^ sw] = make_float4(w[k], w[k + 4], w[k + 1], w[k + 5]);
-  }
-}
-
-// The warp's product for one sub-batch, `feat` its staged features
-// (fwd_feats(s, stride) + 8 jb): 12 mma, the lo passes into cl, the hi hi
-// pass into ch. Entry i of m-tile mt's C fragment is pixel 16 mt + g +
-// 8 (i / 2) of the warp, channel 2t + i % 2 (g = lane / 4, t = lane % 4).
-// Every lane of the warp must call it, after a __syncwarp() that follows
-// every lane's fwd_wbuf_put.
-__device__ __forceinline__ void fwd_product(const float* buf,
-                                            const float* feat,
-                                            float (*ch)[4], float (*cl)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    // B fragment: instance 8 ks + t (+ 4), channel g; lanes (t, g) read
-    // 8 t + g: 32 distinct banks
-    uint32_t bh[2], bl[2];
-    split_tf32(feat[8 * (8 * ks + t) + g], bh[0], bl[0]);
-    split_tf32(feat[8 * (8 * ks + t + 4) + g], bh[1], bl[1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = 16 * mt + g;  // fwd_swz(r + 8) == fwd_swz(r)
-      const int off = 4 * ((2 * ks + (t >> 1)) ^ fwd_swz(r)) + 2 * (t & 1);
-      const float2 x0 = *reinterpret_cast<const float2*>(buf + r * SUB + off);
-      const float2 x1 =
-          *reinterpret_cast<const float2*>(buf + (r + 8) * SUB + off);
-      uint32_t ah[4], al[4];  // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-      split_tf32(x0.x, ah[0], al[0]);
-      split_tf32(x1.x, ah[1], al[1]);
-      split_tf32(x0.y, ah[2], al[2]);
-      split_tf32(x1.y, ah[3], al[3]);
-      mma_tf32(cl[mt], al, bh);
-      mma_tf32(cl[mt], ah, bl);
-      mma_tf32(ch[mt], ah, bh);
-    }
-  }
-}
-
-// Write the warp's color fragments into the tile's channel-major (8, NPIX)
-// block at `base` (= tile * 8 * NPIX).
-__device__ __forceinline__ void fwd_write_color(float* color, int64_t base,
-                                                const float (*ch)[4],
-                                                const float (*cl)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int p0 = (threadIdx.x & ~31) + g;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      color[base + (2 * t + (i & 1)) * NPIX + p0 + 16 * mt + 8 * (i >> 1)] =
-          ch[mt][i] + cl[mt][i];
-  }
-}
-
-// Write one pixel's aux rows into the tile's (8, NPIX) block at `base`
-// (= tile * 8 * NPIX + pixel): 0 median-depth sum, 1 final T, 2 saturation
-// depth, 3-7 zero.
-__device__ __forceinline__ void write_aux(float* aux, int64_t base,
-                                          float dsum, float T, float sat) {
-  aux[base] = dsum;
-  aux[base + NPIX] = T;
-  aux[base + 2 * NPIX] = sat;
-#pragma unroll
-  for (int r = 3; r < 8; ++r) aux[base + r * NPIX] = 0.0f;
-}
+enum Stage { STAGING, ALPHA, SCAN, BLEND, NSTAGES };
+constexpr int CHUNK = 128;  // fwd_stages.CHUNK
 
 template <int STAGE>
 __global__ void __launch_bounds__(NPIX)
-sub_batch_kernel(const float* __restrict__ attrs,
-                 const int* __restrict__ sorted_gid,
-                 const int* __restrict__ ranges, int grid_x, int chunk,
-                 int carry_depth, float* __restrict__ color,
-                 float* __restrict__ aux) {
-  extern __shared__ float s[];  // fwd_stage's layout, then the w buffers
+stage_kernel(const float* __restrict__ attrs,
+             const int* __restrict__ sorted_gid,
+             const int* __restrict__ ranges, int grid_x, int chunk,
+             float* __restrict__ color, float* __restrict__ aux) {
+  extern __shared__ float s[];  // fwd_stage's layout
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
   const float py = (float)((tile / grid_x) * TILE + p / TILE);
   const int stride = fwd_stride(chunk);
-  float* wbuf = s + fwd_stride(chunk) * (FWD_GEOM_ROWS + NFEAT) +
-               (p >> 5) * FWD_WBUF;  // PRODUCT's
 
   float T = 1.0f, dsum = 0.0f, sat = SAT_INF;
   bool dead = false;
   float acc[NFEAT] = {};
-  float ch[2][4] = {}, cl[2][4] = {};  // PRODUCT: the warp's color fragments
   for (int b = start; b < end; b += chunk) {
     const int n = min(chunk, end - b);
     fwd_stage(s, attrs, sorted_gid, b, n, stride);
@@ -177,31 +52,17 @@ sub_batch_kernel(const float* __restrict__ attrs,
     if (STAGE == STAGING) {
       acc[0] += s[(p % FWD_GEOM_ROWS) * stride + p % n];
     } else {
-      for (int jb = 0; jb < n; jb += SUB) {
+      for (int jb = 0; jb < n; jb += FWD_SUB) {  // warp-uniform
         if (STAGE >= SCAN && __all_sync(0xffffffffu, dead)) break;
-        float w[SUB];
+        float w[FWD_SUB];
         sub_alphas(s, jb, stride, px, py, w);
-        if (STAGE == ALPHA) {
-#pragma unroll
-          for (int jj = 0; jj < SUB; ++jj) acc[0] += w[jj];
-          continue;
-        }
-        const bool any =
-            sub_scan(s, jb, stride, carry_depth, w, T, dead, dsum);
-        if (STAGE == SCAN) {
-#pragma unroll
-          for (int jj = 0; jj < SUB; ++jj) acc[0] += w[jj];
-          continue;
-        }
+        if (STAGE >= SCAN) sub_scan(s, jb, stride, 0, w, T, dead, dsum);
         if (STAGE == BLEND) {
           sub_blend(s, jb, stride, w, acc);
-          continue;
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < FWD_SUB; ++jj) acc[0] += w[jj];
         }
-        if (!__any_sync(0xffffffffu, any)) continue;
-        fwd_wbuf_put(wbuf, w);
-        __syncwarp();
-        fwd_product(wbuf, fwd_feats(s, stride) + 8 * jb, ch, cl);
-        __syncwarp();
       }
     }
     if (__syncthreads_count(!dead) == 0) {
@@ -209,116 +70,34 @@ sub_batch_kernel(const float* __restrict__ attrs,
       break;
     }
   }
-  const int64_t base = (int64_t)tile * NFEAT * NPIX;
-  if (STAGE == PRODUCT) {
-    fwd_write_color(color, base, ch, cl);
-  } else {
-#pragma unroll
-    for (int f = 0; f < NFEAT; ++f)
-      if (STAGE == BLEND || f == 0) color[base + f * NPIX + p] = acc[f];
-  }
-  write_aux(aux, base + p, dsum, T, sat);
+  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
 }
 
-template <int STAGE>
-__global__ void __launch_bounds__(NPIX)
-per_pair_kernel(const float* __restrict__ attrs,
-                const int* __restrict__ sorted_gid,
-                const int* __restrict__ ranges, int grid_x, int chunk,
-                int carry_depth, float* __restrict__ color,
-                float* __restrict__ aux) {
-  extern __shared__ float s[];  // ROWS * chunk
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
-
-  float T = 1.0f, dsum = 0.0f, sat = SAT_INF;
-  bool dead = false;
-  float acc[NFEAT] = {};
-  for (int b = start; b < end; b += chunk) {
-    const int n = min(chunk, end - b);
-    __syncthreads();  // the previous batch is no longer read
-    stage_batch(s, nullptr, attrs, sorted_gid, b, n, chunk);
-    __syncthreads();
-    if (STAGE == STAGING) {
-      acc[0] += s[(p % ROWS) * chunk + p % n];
-    } else if (STAGE == ALPHA) {
-      for (int j = 0; j < n; ++j)
-        acc[0] += eval_pair(s, j, chunk, px, py).alpha;
-    } else if (STAGE == SCAN) {  // fwd_range without the blend
-      for (int j = 0; j < n && !dead; ++j) {
-        const Pair q = eval_pair(s, j, chunk, px, py);
-        if (q.alpha == 0.0f) continue;
-        const float test = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
-        if (test < T_STOP) {
-          dead = true;
-          break;
-        }
-        acc[0] += __fmul_rn(q.alpha, T);
-        if (carry_depth && T > 0.5f && test < 0.5f)
-          dsum = __fadd_rn(dsum, s[ROW_DEPTH * chunk + j]);
-        T = test;
-      }
-    } else {
-      fwd_range(s, 0, n, chunk, px, py, carry_depth, T, dead, acc, dsum);
-    }
-    if (__syncthreads_count(!dead) == 0) {
-      sat = max_depth(s, 0, n, chunk);
-      break;
-    }
-  }
-  const int64_t base = (int64_t)tile * NFEAT * NPIX + p;
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f)
-    if (STAGE == BLEND || f == 0) color[base + f * NPIX] = acc[f];
-  write_aux(aux, base, dsum, T, sat);
-}
-
-template <int STAGE>
-static int launch(int per_pair, const float* attrs, const int* sorted_gid,
-                  const int* ranges, int num_tiles, int grid_x, int chunk,
-                  int carry_depth, float* color, float* aux,
-                  cudaStream_t stream) {
-  if constexpr (STAGE != PRODUCT) {
-    if (per_pair) {
-      const size_t smem = (size_t)ROWS * chunk * sizeof(float);
-      per_pair_kernel<STAGE><<<num_tiles, NPIX, smem, stream>>>(
-          attrs, sorted_gid, ranges, grid_x, chunk, carry_depth, color, aux);
-      return (int)cudaGetLastError();
-    }
-  }
-  const size_t smem = STAGE == PRODUCT ? product_smem_bytes(chunk)
-                                       : fwd_smem_bytes(chunk);
-  sub_batch_kernel<STAGE><<<num_tiles, NPIX, smem, stream>>>(
-      attrs, sorted_gid, ranges, grid_x, chunk, carry_depth, color, aux);
-  return (int)cudaGetLastError();
-}
+using StageKernel = void (*)(const float*, const int*, const int*, int, int,
+                             float*, float*);
+static const StageKernel KERNELS[NSTAGES] = {
+    stage_kernel<STAGING>, stage_kernel<ALPHA>, stage_kernel<SCAN>,
+    stage_kernel<BLEND>};
 
 extern "C" int probe_fwd(const float* attrs, const int* sorted_gid,
                          const int* ranges, int num_tiles, int grid_x,
-                         int chunk, int carry_depth, int stage, int per_pair,
-                         float* color, float* aux, cudaStream_t stream) {
-  if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  if (stage < 0 || stage >= NSTAGES || (per_pair && stage == PRODUCT))
-    return (int)cudaErrorInvalidValue;
+                         int stage, float* color, float* aux,
+                         cudaStream_t stream) {
+  if (stage < 0 || stage >= NSTAGES) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  switch (stage) {
-    case STAGING:
-      return launch<STAGING>(per_pair, attrs, sorted_gid, ranges, num_tiles,
-                             grid_x, chunk, carry_depth, color, aux, stream);
-    case ALPHA:
-      return launch<ALPHA>(per_pair, attrs, sorted_gid, ranges, num_tiles,
-                           grid_x, chunk, carry_depth, color, aux, stream);
-    case SCAN:
-      return launch<SCAN>(per_pair, attrs, sorted_gid, ranges, num_tiles,
-                          grid_x, chunk, carry_depth, color, aux, stream);
-    case BLEND:
-      return launch<BLEND>(per_pair, attrs, sorted_gid, ranges, num_tiles,
-                           grid_x, chunk, carry_depth, color, aux, stream);
-    default:
-      return launch<PRODUCT>(per_pair, attrs, sorted_gid, ranges, num_tiles,
-                             grid_x, chunk, carry_depth, color, aux, stream);
-  }
+  KERNELS[stage]<<<num_tiles, NPIX, fwd_smem_bytes(CHUNK), stream>>>(
+      attrs, sorted_gid, ranges, grid_x, CHUNK, color, aux);
+  return (int)cudaGetLastError();
+}
+
+// A stage's registers per thread and its resident blocks per SM on this
+// card, as the runtime reports them for its launch.
+extern "C" int probe_fwd_occupancy(int stage, int* regs, int* blocks) {
+  if (stage < 0 || stage >= NSTAGES) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t rc = cudaFuncGetAttributes(&a, KERNELS[stage]);
+  if (rc != cudaSuccess) return (int)rc;
+  *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, KERNELS[stage], NPIX, fwd_smem_bytes(CHUNK));
 }

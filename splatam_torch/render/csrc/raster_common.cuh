@@ -621,20 +621,23 @@ __device__ __forceinline__ void bwd_batch(const float* s, const int* s_gid,
 }
 
 // ---------------------------------------------------------------------------
-// The forward of B1 (raster_fwd.cu) per warp sub-batch of SUB = 16 staged
+// The forward of B1 (raster_fwd.cu) per warp sub-batch of FWD_SUB staged
 // instances. B3a and B3b keep fwd_range above.
 //
 // B1 stages a batch in its own layout (fwd_stage): the seven alpha and depth
 // rows at r * stride + j, as eval_pair reads them (stride: chunk rounded up
-// to SUB, the slots past n zero, so that a padded slot's alpha is 0), then
+// to FWD_SUB, the slots past n zero, so that a padded slot's alpha is 0), then
 // the eight features of instance j at fwd_feats(s, stride) + 8 j.
 // ---------------------------------------------------------------------------
 
 // x, y, the conic's a b c, opacity, depth
 constexpr int FWD_GEOM_ROWS = ROW_DEPTH + 1;
+// B1's sub-batch (no mma reads it, so it is not bound to SUB); a multiple
+// of 4, so that the staged features stay 16-byte aligned
+constexpr int FWD_SUB = 8;
 
 __host__ __device__ inline int fwd_stride(int chunk) {
-  return (chunk + SUB - 1) / SUB * SUB;
+  return (chunk + FWD_SUB - 1) / FWD_SUB * FWD_SUB;
 }
 
 template <typename F>
@@ -651,7 +654,7 @@ __device__ __forceinline__ void fwd_stage(float* s,
                                           const int* __restrict__ sorted_gid,
                                           int b, int n, int stride) {
   float* feat = fwd_feats(s, stride);
-  const int npad = (n + SUB - 1) / SUB * SUB;
+  const int npad = (n + FWD_SUB - 1) / FWD_SUB * FWD_SUB;
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) {
     const int j = i >> 2, q = i & 3;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -673,26 +676,24 @@ __device__ __forceinline__ void fwd_stage(float* s,
   }
 }
 
-// (a) The alphas of instances [jb, jb + SUB) for this pixel. They do not
-// depend on T, so the 16 eval_pair chains issue side by side.
+// (a) The alphas of instances [jb, jb + FWD_SUB) for this pixel. They do not
+// depend on T, so the FWD_SUB eval_pair chains issue side by side.
 __device__ __forceinline__ void sub_alphas(const float* s, int jb, int stride,
                                            float px, float py, float* al) {
 #pragma unroll
-  for (int jj = 0; jj < SUB; ++jj)
+  for (int jj = 0; jj < FWD_SUB; ++jj)
     al[jj] = eval_pair(s, jb + jj, stride, px, py).alpha;
 }
 
 // (b) fwd_range's transmittance recursion over the sub-batch, in order and
 // in the same rounded arithmetic: turns al[jj] into w = alpha T, zero where
 // the pair adds nothing (alpha 0, the pixel dead, or dying at this
-// instance). Advances T, dead and the median-depth sum; returns whether any
-// pair contributed.
-__device__ __forceinline__ bool sub_scan(const float* s, int jb, int stride,
+// instance). Advances T, dead and the median-depth sum.
+__device__ __forceinline__ void sub_scan(const float* s, int jb, int stride,
                                          int carry_depth, float* al,
                                          float& T, bool& dead, float& dsum) {
-  bool any = false;
 #pragma unroll
-  for (int jj = 0; jj < SUB; ++jj) {
+  for (int jj = 0; jj < FWD_SUB; ++jj) {
     const float a = al[jj];
     float w = 0.0f;
     if (!dead && a != 0.0f) {
@@ -704,12 +705,10 @@ __device__ __forceinline__ bool sub_scan(const float* s, int jb, int stride,
         if (carry_depth && T > 0.5f && test < 0.5f)
           dsum = __fadd_rn(dsum, s[ROW_DEPTH * stride + jb + jj]);
         T = test;
-        any = true;
       }
     }
     al[jj] = w;
   }
-  return any;
 }
 
 // (c) The blend of the sub-batch into this pixel's 8 channels, in order,
@@ -723,7 +722,7 @@ __device__ __forceinline__ void sub_blend(const float* s, int jb, int stride,
                                           const float* w, float* acc) {
   const float* feat = fwd_feats(s, stride) + 8 * jb;
 #pragma unroll
-  for (int jj = 0; jj < SUB; ++jj) {
+  for (int jj = 0; jj < FWD_SUB; ++jj) {
     if (!__any_sync(0xffffffffu, w[jj] != 0.0f)) continue;
     const float4 f0 = reinterpret_cast<const float4*>(feat + 8 * jj)[0];
     const float4 f1 = reinterpret_cast<const float4*>(feat + 8 * jj)[1];

@@ -22,9 +22,9 @@
 // rounded operations and one exp per (pixel, instance) pair, 256 K pairs
 // for K instances composited before the early exits; the bytes (the
 // attribute rows, the gid stream, the two (T, 8, 256) outputs) are small
-// beside that. Each warp takes a staged batch in sub-batches of SUB = 16
-// instances (raster_common.cuh): (a) the 16 alphas, which do not depend on
-// T, issue side by side (sub_alphas), where the earlier design ran one
+// beside that. Each warp takes a staged batch in sub-batches of FWD_SUB =
+// 8 instances (raster_common.cuh): (a) the 8 alphas, which do not depend
+// on T, issue side by side (sub_alphas), where the earlier design ran one
 // dependent chain per pair (shared loads, power, exp, test, branch) that
 // the compiler could not overlap across its early exits; (b) the
 // transmittance recursion runs over them in registers, in order and in
@@ -33,8 +33,10 @@
 // each instance where any lane of the warp contributes, one fused
 // multiply-add per channel (sub_blend). A warp whose pixels are all dead
 // skips the rest of the batch. The batch is staged for this: the seven
-// alpha and depth rows padded to a multiple of 16 with zero slots (alpha
-// 0), the features instance-major, with 16-byte loads (fwd_stage).
+// alpha and depth rows padded to a multiple of 8 with zero slots (alpha
+// 0), the features instance-major, with 16-byte loads (fwd_stage). Eight
+// measured faster than 16 (B2's SUB, which no mma binds here; 48 registers
+// a thread against 59, 5 blocks per SM against 4) and than 4 or 32.
 //
 // The TPU kernel blends as a product on its matrix unit (`color_ref[0] +=
 // jax.lax.dot_general(feats, w, ...)`, pallas_raster.py:635). Its
@@ -42,7 +44,7 @@
 // and the features split hi + lo, three passes, 12 mma for 512 pairs, the
 // precision of f32), measured slower on this card than the fused
 // multiply-adds it would replace, which skip the 45% of warp slots where
-// no pixel reaches 1/255; bench/fwd_stages.py keeps both measurable. The
+// no pixel reaches 1/255. The
 // fused add rounds once where the plain version rounds twice, so the color
 // differs from it in the last bits (within 1e-5 + 1e-4 relative); T, the
 // median depth and the saturation depth are bit for bit. The kernel keeps
@@ -52,12 +54,14 @@
 
 using namespace splat;
 
+// DEPTH: whether the median-depth sum is taken (carry_depth), a template
+// argument so that the loop without it keeps no register for it
+template <bool DEPTH>
 __global__ void __launch_bounds__(NPIX)
 raster_fwd_kernel(const float* __restrict__ attrs,
                   const int* __restrict__ sorted_gid,
                   const int* __restrict__ ranges, int grid_x, int chunk,
-                  int carry_depth, float* __restrict__ color,
-                  float* __restrict__ aux) {
+                  float* __restrict__ color, float* __restrict__ aux) {
   extern __shared__ float s[];  // fwd_stage's layout
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -78,11 +82,11 @@ raster_fwd_kernel(const float* __restrict__ attrs,
     const int n = min(chunk, end - b);
     fwd_stage(s, attrs, sorted_gid, b, n, stride);
     __syncthreads();
-    for (int jb = 0; jb < n; jb += SUB) {  // warp-uniform
+    for (int jb = 0; jb < n; jb += FWD_SUB) {  // warp-uniform
       if (__all_sync(0xffffffffu, dead)) break;
-      float w[SUB];
+      float w[FWD_SUB];
       sub_alphas(s, jb, stride, px, py, w);
-      sub_scan(s, jb, stride, carry_depth, w, T, dead, dsum);
+      sub_scan(s, jb, stride, DEPTH, w, T, dead, dsum);
       sub_blend(s, jb, stride, w, acc);
     }
     // (also the barrier before the next batch's staging)
@@ -100,7 +104,12 @@ extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
                           cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  raster_fwd_kernel<<<num_tiles, NPIX, fwd_smem_bytes(chunk), stream>>>(
-      attrs, sorted_gid, ranges, grid_x, chunk, carry_depth, color, aux);
+  const size_t smem = fwd_smem_bytes(chunk);
+  if (carry_depth)
+    raster_fwd_kernel<true><<<num_tiles, NPIX, smem, stream>>>(
+        attrs, sorted_gid, ranges, grid_x, chunk, color, aux);
+  else
+    raster_fwd_kernel<false><<<num_tiles, NPIX, smem, stream>>>(
+        attrs, sorted_gid, ranges, grid_x, chunk, color, aux);
   return (int)cudaGetLastError();
 }

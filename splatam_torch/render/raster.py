@@ -132,8 +132,7 @@ def _library_path(name: str) -> Path:
 def build_kernels(names=KERNEL_SOURCES) -> dict:
     """Compile the named kernel sources that are not built yet, all at once
     (one nvcc per source, started together). Returns {name: compiler log}
-    for the sources it compiled, each log also kept beside its library
-    (``.log``); raises if any compile fails."""
+    for the sources it compiled; raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -151,7 +150,6 @@ def build_kernels(names=KERNEL_SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(name)
         else:
-            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError(

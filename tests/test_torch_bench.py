@@ -399,8 +399,7 @@ def test_probe_wrappers_refuse_cpu_tensors():
     binned = Binned(torch.zeros(1, dtype=torch.int32),
                     torch.zeros((1, 2), dtype=torch.int32), None, None, 0)
     with pytest.raises(ValueError):
-        fwd_stages.stage_cuda("blend", "sub_batch", torch.zeros((1, 16)),
-                              binned, 1, 64)
+        fwd_stages.stage_cuda("blend", torch.zeros((1, 16)), binned, 1)
     for run in (vpu_probe.run, ilp_probe.run, step_overhead.run,
                 fwd_stages.run):
         with pytest.raises(RuntimeError):
