@@ -11,7 +11,7 @@
 // the plain PyTorch version in render/raster.py, which rounds after every
 // tensor op. Only expf may differ from torch.exp in the last place. The
 // sums of the blend and of the backward's pixel sums are taken in other
-// orders (B1's fused multiply-adds, the tensor cores' products) and differ
+// orders (the forward's fused multiply-adds, the tensor cores' products) and differ
 // from the plain version's in the last bits; no sum feeds back into alpha,
 // T or a pixel's death.
 #pragma once
@@ -76,33 +76,6 @@ __device__ __forceinline__ void stage_batch(float* s, int* s_gid,
     const int g = sorted_gid[b + j];
     s[r * chunk + j] = attrs[(int64_t)g * ROWS + r];
     if (s_gid != nullptr && r == 0) s_gid[j] = g;
-  }
-}
-
-// Composite staged instances [j0, j1) into one pixel, front to back: a
-// pixel dies where T (1 - alpha) < T_STOP and that instance adds nothing;
-// the median depth is the depth where T crosses 0.5.
-__device__ __forceinline__ void fwd_range(const float* s, int j0, int j1,
-                                          int chunk, float px, float py,
-                                          int carry_depth, float& T,
-                                          bool& dead, float* acc,
-                                          float& dsum) {
-  if (dead) return;
-  for (int j = j0; j < j1; ++j) {
-    const Pair q = eval_pair(s, j, chunk, px, py);
-    if (q.alpha == 0.0f) continue;  // T and the sums stay as they are
-    const float test = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
-    if (test < T_STOP) {
-      dead = true;
-      return;
-    }
-    const float w = __fmul_rn(q.alpha, T);
-#pragma unroll
-    for (int f = 0; f < NFEAT; ++f)
-      acc[f] = __fadd_rn(acc[f], __fmul_rn(w, s[(ROW_FEAT0 + f) * chunk + j]));
-    if (carry_depth && T > 0.5f && test < 0.5f)
-      dsum = __fadd_rn(dsum, s[ROW_DEPTH * chunk + j]);
-    T = test;
   }
 }
 
@@ -621,13 +594,14 @@ __device__ __forceinline__ void bwd_batch(const float* s, const int* s_gid,
 }
 
 // ---------------------------------------------------------------------------
-// The forward of B1 (raster_fwd.cu) per warp sub-batch of FWD_SUB staged
-// instances. B3a and B3b keep fwd_range above.
+// The forward of B1 (raster_fwd.cu), B3a and B3b (raster_split_fwd.cu) per
+// warp sub-batch of FWD_SUB staged instances.
 //
-// B1 stages a batch in its own layout (fwd_stage): the seven alpha and depth
-// rows at r * stride + j, as eval_pair reads them (stride: chunk rounded up
-// to FWD_SUB, the slots past n zero, so that a padded slot's alpha is 0), then
-// the eight features of instance j at fwd_feats(s, stride) + 8 j.
+// A batch is staged in the forward's own layout (fwd_stage): the seven alpha
+// and depth rows at r * stride + j, as eval_pair reads them (stride: chunk
+// rounded up to FWD_SUB, the slots past n zero, so that a padded slot's
+// alpha is 0), then the eight features of instance j at
+// fwd_feats(s, stride) + 8 j.
 // ---------------------------------------------------------------------------
 
 // x, y, the conic's a b c, opacity, depth
@@ -645,35 +619,47 @@ __device__ __forceinline__ F* fwd_feats(F* s, int stride) {
   return s + FWD_GEOM_ROWS * stride;
 }
 
-// Stage instances [b, b + n) of the sorted stream in B1's layout, gathered
-// by gid with one 16-byte load per (instance, quarter row), by every thread
-// of the block; slots [n, stride) get zeros. The (N, 16) table's rows are
-// 64 bytes, so a quarter is 16-byte aligned where the table is.
-__device__ __forceinline__ void fwd_stage(float* s,
-                                          const float* __restrict__ attrs,
-                                          const int* __restrict__ sorted_gid,
-                                          int b, int n, int stride) {
+// Stage instances [b, b + n) of the sorted stream in the forward's layout
+// at slots [slot, slot + n) (slot a multiple of FWD_SUB), gathered by gid
+// with one 16-byte load per (instance, quarter row), by threads t, t + nt,
+// ...; the slots from slot + n to the next multiple of FWD_SUB get zeros.
+// The (N, 16) table's rows are 64 bytes, so a quarter is 16-byte aligned
+// where the table is.
+__device__ __forceinline__ void fwd_stage_at(float* s,
+                                             const float* __restrict__ attrs,
+                                             const int* __restrict__ sorted_gid,
+                                             int b, int n, int stride,
+                                             int slot, int t, int nt) {
   float* feat = fwd_feats(s, stride);
   const int npad = (n + FWD_SUB - 1) / FWD_SUB * FWD_SUB;
-  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) {
-    const int j = i >> 2, q = i & 3;
+  for (int i = t; i < npad * 4; i += nt) {
+    const int j = i >> 2, q = i & 3, k = slot + j;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (j < n)
       v = reinterpret_cast<const float4*>(
           attrs + (int64_t)sorted_gid[b + j] * ROWS)[q];
     if (q == 0) {
-      s[ROW_X * stride + j] = v.x;
-      s[ROW_Y * stride + j] = v.y;
-      s[ROW_CA * stride + j] = v.z;
-      s[ROW_CB * stride + j] = v.w;
+      s[ROW_X * stride + k] = v.x;
+      s[ROW_Y * stride + k] = v.y;
+      s[ROW_CA * stride + k] = v.z;
+      s[ROW_CB * stride + k] = v.w;
     } else if (q == 1) {
-      s[ROW_CC * stride + j] = v.x;
-      s[ROW_OP * stride + j] = v.y;
-      s[ROW_DEPTH * stride + j] = v.z;  // v.w: the gid row, not needed
+      s[ROW_CC * stride + k] = v.x;
+      s[ROW_OP * stride + k] = v.y;
+      s[ROW_DEPTH * stride + k] = v.z;  // v.w: the gid row, not needed
     } else {
-      reinterpret_cast<float4*>(feat + 8 * j)[q - 2] = v;
+      reinterpret_cast<float4*>(feat + 8 * k)[q - 2] = v;
     }
   }
+}
+
+// Stage instances [b, b + n) at slot 0, by every thread of the block.
+__device__ __forceinline__ void fwd_stage(float* s,
+                                          const float* __restrict__ attrs,
+                                          const int* __restrict__ sorted_gid,
+                                          int b, int n, int stride) {
+  fwd_stage_at(s, attrs, sorted_gid, b, n, stride, 0, threadIdx.x,
+               blockDim.x);
 }
 
 // (a) The alphas of instances [jb, jb + FWD_SUB) for this pixel. They do not
@@ -685,10 +671,12 @@ __device__ __forceinline__ void sub_alphas(const float* s, int jb, int stride,
     al[jj] = eval_pair(s, jb + jj, stride, px, py).alpha;
 }
 
-// (b) fwd_range's transmittance recursion over the sub-batch, in order and
-// in the same rounded arithmetic: turns al[jj] into w = alpha T, zero where
-// the pair adds nothing (alpha 0, the pixel dead, or dying at this
-// instance). Advances T, dead and the median-depth sum.
+// (b) The transmittance recursion over the sub-batch, in order and in
+// rounded arithmetic (the backward's pair_dpower replays it bit for bit): a
+// pixel dies where T (1 - alpha) < T_STOP and that instance adds nothing;
+// the median depth is the depth where T crosses 0.5. Turns al[jj] into
+// w = alpha T, zero where the pair adds nothing (alpha 0, the pixel dead,
+// or dying at this instance). Advances T, dead and the median-depth sum.
 __device__ __forceinline__ void sub_scan(const float* s, int jb, int stride,
                                          int carry_depth, float* al,
                                          float& T, bool& dead, float& dsum) {
@@ -729,6 +717,88 @@ __device__ __forceinline__ void sub_blend(const float* s, int jb, int stride,
     const float fv[NFEAT] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
     for (int f = 0; f < NFEAT; ++f) acc[f] = fmaf(w[jj], fv[f], acc[f]);
+  }
+}
+
+// (a)-(c) over the staged slots [j0, j1) for one pixel (j0 a multiple of
+// FWD_SUB; the slots from j1 to the next multiple zero), front to back; a
+// warp whose pixels are all dead skips the rest. Every lane of a warp must
+// take the same range. DEPTH: whether the median-depth sum is taken, a
+// template argument so that the loop without it keeps no register for it.
+template <bool DEPTH>
+__device__ __forceinline__ void fwd_sub_batches(const float* s, int j0,
+                                                int j1, int stride, float px,
+                                                float py, float& T,
+                                                bool& dead, float* acc,
+                                                float& dsum) {
+  for (int jb = j0; jb < j1; jb += FWD_SUB) {  // warp-uniform
+    if (__all_sync(0xffffffffu, dead)) break;
+    float w[FWD_SUB];
+    sub_alphas(s, jb, stride, px, py, w);
+    sub_scan(s, jb, stride, DEPTH, w, T, dead, dsum);
+    sub_blend(s, jb, stride, w, acc);
+  }
+}
+
+// The split layout's per-tile forward carry, channel-major (T, 3, NPIX):
+// row 0 T, negated where the pixel is dead; row 1 the median-depth sum so
+// far; row 2 the saturation candidate, the largest depth of the last batch
+// the interior composited (0 where the tile has no interior).
+constexpr int CARRY_ROWS = 3;
+
+// The body of B1 (CARRY false) and B3a (CARRY true): one block per tile and
+// one thread per pixel walk the tile's range [ranges[2 t], ranges[2 t + 1])
+// front to back, in batches of `chunk` staged in shared memory s
+// (fwd_smem_bytes(chunk)) and composited per warp sub-batch. After each
+// batch the block counts its live pixels and the tile stops when none is
+// left; its saturation depth is then that batch's largest depth. Writes
+// color and aux (write_fwd); with CARRY also the carry, whose candidate is
+// the largest depth of the last batch composited, saturated or not.
+template <bool DEPTH, bool CARRY>
+__device__ __forceinline__ void fwd_tile(float* s,
+                                         const float* __restrict__ attrs,
+                                         const int* __restrict__ sorted_gid,
+                                         const int* __restrict__ ranges,
+                                         int grid_x, int chunk,
+                                         float* __restrict__ color,
+                                         float* __restrict__ aux,
+                                         float* __restrict__ carry) {
+  const int tile = blockIdx.x;
+  const int p = threadIdx.x;
+  const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
+  const float px = (float)((tile % grid_x) * TILE + p % TILE);
+  const float py = (float)((tile / grid_x) * TILE + p / TILE);
+  const int stride = fwd_stride(chunk);
+
+  float T = 1.0f;
+  bool dead = false;
+  float acc[NFEAT];
+#pragma unroll
+  for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
+  float dsum = 0.0f;
+  float sat = SAT_INF;
+  float cand = 0.0f;
+
+  for (int b = start; b < end; b += chunk) {
+    const int n = min(chunk, end - b);
+    fwd_stage(s, attrs, sorted_gid, b, n, stride);
+    __syncthreads();
+    fwd_sub_batches<DEPTH>(s, 0, n, stride, px, py, T, dead, acc, dsum);
+    // (also the barrier before the next batch's staging)
+    const bool saturated = __syncthreads_count(!dead) == 0;
+    if (saturated || (CARRY && b + chunk >= end)) {  // the last batch
+      const float m = max_depth(s, 0, n, stride);
+      if (saturated) sat = m;
+      cand = m;
+      break;
+    }
+  }
+  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
+  if (CARRY) {
+    float* cr = carry + (int64_t)tile * CARRY_ROWS * NPIX + p;
+    cr[0] = dead ? -T : T;
+    cr[NPIX] = dsum;
+    cr[2 * NPIX] = cand;
   }
 }
 

@@ -54,8 +54,8 @@
 
 using namespace splat;
 
-// DEPTH: whether the median-depth sum is taken (carry_depth), a template
-// argument so that the loop without it keeps no register for it
+// B1 is raster_common.cuh's fwd_tile without the split layout's carry.
+// DEPTH: whether the median-depth sum is taken (carry_depth).
 template <bool DEPTH>
 __global__ void __launch_bounds__(NPIX)
 raster_fwd_kernel(const float* __restrict__ attrs,
@@ -63,39 +63,8 @@ raster_fwd_kernel(const float* __restrict__ attrs,
                   const int* __restrict__ ranges, int grid_x, int chunk,
                   float* __restrict__ color, float* __restrict__ aux) {
   extern __shared__ float s[];  // fwd_stage's layout
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int start = ranges[2 * tile], end = ranges[2 * tile + 1];
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
-  const int stride = fwd_stride(chunk);
-
-  float T = 1.0f;
-  bool dead = false;
-  float acc[NFEAT];
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
-  float dsum = 0.0f;
-  float sat = SAT_INF;
-
-  for (int b = start; b < end; b += chunk) {
-    const int n = min(chunk, end - b);
-    fwd_stage(s, attrs, sorted_gid, b, n, stride);
-    __syncthreads();
-    for (int jb = 0; jb < n; jb += FWD_SUB) {  // warp-uniform
-      if (__all_sync(0xffffffffu, dead)) break;
-      float w[FWD_SUB];
-      sub_alphas(s, jb, stride, px, py, w);
-      sub_scan(s, jb, stride, DEPTH, w, T, dead, dsum);
-      sub_blend(s, jb, stride, w, acc);
-    }
-    // (also the barrier before the next batch's staging)
-    if (__syncthreads_count(!dead) == 0) {
-      sat = max_depth(s, 0, n, stride);
-      break;
-    }
-  }
-  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
+  fwd_tile<DEPTH, false>(s, attrs, sorted_gid, ranges, grid_x, chunk, color,
+                         aux, nullptr);
 }
 
 extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,

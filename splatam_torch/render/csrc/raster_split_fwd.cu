@@ -37,50 +37,25 @@
 
 using namespace splat;
 
-constexpr int CARRY_ROWS = 3;
-
+// B3a: B1's body with the carry (fwd_tile), over each tile's interior
+template <bool DEPTH>
 __global__ void __launch_bounds__(NPIX)
 split_int_fwd_kernel(const float* __restrict__ attrs,
                      const int* __restrict__ sorted_gid,
                      const int* __restrict__ int_ranges, int grid_x,
-                     int chunk, int carry_depth, float* __restrict__ color,
+                     int chunk, float* __restrict__ color,
                      float* __restrict__ aux, float* __restrict__ carry) {
-  extern __shared__ float s[];  // ROWS * chunk
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int start = int_ranges[2 * tile], end = int_ranges[2 * tile + 1];
-  const float px = (float)((tile % grid_x) * TILE + p % TILE);
-  const float py = (float)((tile / grid_x) * TILE + p / TILE);
-
-  float T = 1.0f;
-  bool dead = false;
-  float acc[NFEAT];
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
-  float dsum = 0.0f;
-  float sat = SAT_INF;
-  float cand = 0.0f;
-
-  for (int b = start; b < end; b += chunk) {
-    const int n = min(chunk, end - b);
-    __syncthreads();  // the previous batch is no longer read
-    stage_batch(s, nullptr, attrs, sorted_gid, b, n, chunk);
-    __syncthreads();
-    fwd_range(s, 0, n, chunk, px, py, carry_depth, T, dead, acc, dsum);
-    const bool saturated = __syncthreads_count(!dead) == 0;
-    if (saturated || b + chunk >= end) {  // the last batch composited
-      cand = max_depth(s, 0, n, chunk);
-      if (saturated) sat = cand;
-      break;
-    }
-  }
-  write_fwd(color, aux, (int64_t)tile * NFEAT * NPIX + p, acc, dsum, T, sat);
-  float* cr = carry + (int64_t)tile * CARRY_ROWS * NPIX + p;
-  cr[0] = dead ? -T : T;
-  cr[NPIX] = dsum;
-  cr[2 * NPIX] = cand;
+  extern __shared__ float s[];  // fwd_stage's layout
+  fwd_tile<DEPTH, true>(s, attrs, sorted_gid, int_ranges, grid_x, chunk,
+                        color, aux, carry);
 }
 
+// B3b's shared memory: the two segments at their own FWD_SUB-aligned slots
+__host__ __device__ inline int tail_stride(int chunk) {
+  return fwd_stride(chunk + FWD_SUB);
+}
+
+template <bool DEPTH>
 __global__ void __launch_bounds__(2 * NPIX)
 split_tail_fwd_kernel(const float* __restrict__ attrs,
                       const int* __restrict__ sorted_gid,
@@ -88,23 +63,25 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
                       const int* __restrict__ tsl,
                       const int* __restrict__ tbt,
                       const float* __restrict__ carry, int tail_base,
-                      int grid_x, int chunk, int carry_depth,
-                      float* __restrict__ colorp, float* __restrict__ auxp) {
-  extern __shared__ float s[];  // ROWS * chunk
+                      int grid_x, int chunk, float* __restrict__ colorp,
+                      float* __restrict__ auxp) {
+  extern __shared__ float s[];  // fwd_stage's layout, stride tail_stride
   const int c = blockIdx.x;
   const int seg = threadIdx.x / NPIX;  // 0: segment A, 1: segment B
   const int p = threadIdx.x % NPIX;
   const int sl = tsl[c];
   const int send = sl >> 16, lim = sl & 0xFFFF;
   if (lim == 0) return;  // block-uniform: an empty chunk writes nothing
+  const int stride = tail_stride(chunk);
+  // the segment's rows of the chunk, and its first slot in shared memory
+  const int j0 = seg == 0 ? 0 : send, n = seg == 0 ? send : lim - send;
+  const int slot = seg == 0 ? 0 : fwd_stride(send);
+  fwd_stage_at(s, attrs, sorted_gid, tail_base + c * chunk + j0, n, stride,
+               slot, p, NPIX);
   const int meta = seg == 0 ? tmeta[c] : tbt[c];
   const int tile = meta >> 1;
-  const int j0 = seg == 0 ? 0 : send, j1 = seg == 0 ? send : lim;
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
   const float py = (float)((tile / grid_x) * TILE + p / TILE);
-
-  stage_batch(s, nullptr, attrs, sorted_gid, tail_base + c * chunk, lim,
-              chunk);
   float T = 1.0f, dsum = 0.0f, cand = 0.0f;
   bool dead = false;
   if (meta & 1) {  // the tile has interior chunks: continue from its carry
@@ -120,12 +97,14 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
   float acc[NFEAT];
 #pragma unroll
   for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
-  fwd_range(s, j0, j1, chunk, px, py, carry_depth, T, dead, acc, dsum);
+  // a warp lies in one segment, so its sub-batch loop stays warp-uniform
+  fwd_sub_batches<DEPTH>(s, slot, slot + n, stride, px, py, T, dead, acc,
+                         dsum);
   const bool alive_a = __syncthreads_count(seg == 0 && !dead) > 0;
   const bool alive_b = __syncthreads_count(seg == 1 && !dead) > 0;
 
   const int64_t base = ((int64_t)c * 2 + seg) * NFEAT * NPIX + p;
-  if (j0 >= j1) {  // the B half of a single-residue chunk
+  if (n == 0) {  // the B half of a single-residue chunk
     const float zero[NFEAT] = {};
     write_fwd(colorp, auxp, base, zero, 0.0f, 0.0f, 0.0f);
     return;
@@ -133,7 +112,7 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
   float sat = SAT_INF;
   if (!(seg == 0 ? alive_a : alive_b))
     sat = (seg == 0 ? entry_alive_a : entry_alive_b)
-              ? max_depth(s, j0, j1, chunk)
+              ? max_depth(s, slot, slot + n, stride)
               : cand;
   write_fwd(colorp, auxp, base, acc, dsum, T, sat);
 }
@@ -145,10 +124,13 @@ extern "C" int raster_split_int_fwd(const float* attrs, const int* sorted_gid,
                                     cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)ROWS * chunk * sizeof(float);
-  split_int_fwd_kernel<<<num_tiles, NPIX, smem, stream>>>(
-      attrs, sorted_gid, int_ranges, grid_x, chunk, carry_depth, color, aux,
-      carry);
+  const size_t smem = fwd_smem_bytes(chunk);
+  if (carry_depth)
+    split_int_fwd_kernel<true><<<num_tiles, NPIX, smem, stream>>>(
+        attrs, sorted_gid, int_ranges, grid_x, chunk, color, aux, carry);
+  else
+    split_int_fwd_kernel<false><<<num_tiles, NPIX, smem, stream>>>(
+        attrs, sorted_gid, int_ranges, grid_x, chunk, color, aux, carry);
   return (int)cudaGetLastError();
 }
 
@@ -160,9 +142,15 @@ extern "C" int raster_split_tail_fwd(const float* attrs, const int* sorted_gid,
                                      float* auxp, cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tail == 0) return 0;
-  const size_t smem = (size_t)ROWS * chunk * sizeof(float);
-  split_tail_fwd_kernel<<<num_tail, 2 * NPIX, smem, stream>>>(
-      attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
-      carry_depth, colorp, auxp);
+  const size_t smem =
+      (size_t)(FWD_GEOM_ROWS + NFEAT) * tail_stride(chunk) * sizeof(float);
+  if (carry_depth)
+    split_tail_fwd_kernel<true><<<num_tail, 2 * NPIX, smem, stream>>>(
+        attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
+        colorp, auxp);
+  else
+    split_tail_fwd_kernel<false><<<num_tail, 2 * NPIX, smem, stream>>>(
+        attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
+        colorp, auxp);
   return (int)cudaGetLastError();
 }

@@ -269,11 +269,15 @@ def _check_grad_inputs(t, color, aux, g_color, g_aux, nfeat):
         raise ValueError(f"nfeat must be in [0, {NFEAT_PAD}], got {nfeat}")
 
 
+def _check_aligned(attrs):
+    if attrs.data_ptr() % 16:  # the forward gathers the table's rows as float4s
+        raise ValueError("attrs must be 16-byte aligned")
+
+
 def raster_fwd_cuda(attrs, sorted_gid, ranges, grid_x, chunk, carry_depth=True):
     """Launch B1. Returns (color, aux), each (T, 8, NPIX)."""
     _check_common(attrs, sorted_gid, ranges, chunk)
-    if attrs.data_ptr() % 16:  # B1 gathers the table's rows as float4s
-        raise ValueError("attrs must be 16-byte aligned")
+    _check_aligned(attrs)
     t = ranges.shape[0]
     color = torch.empty((t, NFEAT_PAD, NPIX), dtype=torch.float32,
                         device=attrs.device)
@@ -314,6 +318,7 @@ def raster_split_int_fwd_cuda(attrs, binned: BinnedSplit, grid_x, chunk,
     """Launch B3a. Returns (color, aux, carry): B1's outputs for each
     tile's interior range, and the (T, FWD_CARRY_ROWS, NPIX) carry."""
     _check_common(attrs, binned.sorted_gid, binned.int_ranges, chunk)
+    _check_aligned(attrs)
     t = binned.int_ranges.shape[0]
     color = torch.empty((t, NFEAT_PAD, NPIX), dtype=torch.float32,
                         device=attrs.device)
@@ -334,6 +339,7 @@ def raster_split_tail_fwd_cuda(attrs, binned: BinnedSplit, carry, grid_x,
     (colorp, auxp), each (NCt, 2, 8, NPIX): per tail chunk, segment A's and
     B's color contribution and their tiles' final aux."""
     _check_common(attrs, binned.sorted_gid, binned.int_ranges, chunk)
+    _check_aligned(attrs)
     nct, tail_base = _tail_args(binned, chunk)
     t = binned.int_ranges.shape[0]
     _check(carry, "carry", torch.float32, (t, FWD_CARRY_ROWS, NPIX))
