@@ -20,10 +20,12 @@ Phases, each of which must pass:
    gaussians with op exp(power) within 2% of 1/255 at many pixels), and
    ``bench.py``'s scene (200k gaussians at 1200x680) with the fused
    6-channel mapping features; B3a-d also on an interior-only scene. B1,
-   B2, B3c and B3d also at chunk 256 and 512 (past 48 KB of shared memory
+   B2 and B3a-d also at chunk 256 and 512 (past 48 KB of shared memory
    for the backward) on every scene. Each split kernel gets
-   the plain version's inputs (carries included), and the composed split
-   render and its gradients are held against B1/B2 on the same scene.
+   the plain version's inputs (carries included); B3b, which finishes its
+   tiles in place, runs on the plain B3a's outputs and is held against
+   ``compose_split`` of the plain B3a's and B3b's. The split render on the
+   card and its gradients are held against B1/B2 on the same scene.
    Tolerances: forward atol 1e-5 + rtol 1e-4 (final T atol 2e-5 against
    the plain versions, 1e-6 split against aligned), saturation depth
    exact, gradients 5e-5 of their largest magnitude. B4 (aligned binning,
@@ -106,7 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 128
 FWD_ATOL, FWD_RTOL, FINAL_T_ATOL = 1e-5, 1e-4, 2e-5
 GRAD_TOL = 5e-5  # of the largest gradient magnitude (tests/test_pallas.py)
-# B1, B2, B3c and B3d are also held to their plain versions at these staged
+# B1, B2 and B3a-d are also held to their plain versions at these staged
 # batches (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's launch)
 CHUNKS = (256, 512)
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W limit): f32
@@ -556,10 +558,52 @@ def check_render_fisher(name, scene, dev):
         f"against scale {scale:.3g} (limit {FISHER_TOL:g} of scale)")
 
 
+def check_split_fwd(tag, sp: Setup, carry):
+    """B3a against its plain version; then B3b in place on clones of the
+    plain B3a's outputs, from the plain carry, against ``compose_split`` of
+    the plain B3a's and B3b's outputs. Returns (B3a's error, B3b's error,
+    the plain outputs: c0, a0, k0, ev_i of B3a, cp0, ap0, ev_t of B3b, and
+    the composed color and aux)."""
+    import torch
+
+    from splatam_torch.render import raster
+
+    b, gx, chunk = sp.binned, sp.grid_x, sp.chunk
+    c1, a1, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx, chunk,
+                                                  carry)
+    torch.cuda.synchronize()
+    c0, a0, k0, ev_i = raster.raster_split_int_fwd_plain(sp.attrs, b, gx,
+                                                         chunk, carry)
+    e3a = max(check_close(f"B3a {tag} color", c1, c0, FWD_ATOL),
+              check_close(f"B3a {tag} median depth", a1[:, 0], a0[:, 0],
+                          FWD_ATOL),
+              check_close(f"B3a {tag} T", a1[:, 1], a0[:, 1], FINAL_T_ATOL),
+              check_close(f"B3a {tag} carry T, depth", k1[:, :2], k0[:, :2],
+                          FINAL_T_ATOL))
+    check_equal(f"B3a {tag} saturation depth", a1[:, 2:], a0[:, 2:])
+    check_equal(f"B3a {tag} carry death", k1[:, 0] < 0, k0[:, 0] < 0)
+    check_equal(f"B3a {tag} carry candidate", k1[:, 2], k0[:, 2])
+
+    cs1, as1 = raster.raster_split_tail_fwd_cuda(sp.attrs, b, k0, gx, chunk,
+                                                 c0.clone(), a0.clone(), carry)
+    torch.cuda.synchronize()
+    cp0, ap0, ev_t = raster.raster_split_tail_fwd_plain(sp.attrs, b, k0, gx,
+                                                        chunk, carry)
+    color, aux = raster.compose_split(b, c0, a0, cp0, ap0)
+    e3b = max(check_close(f"B3b {tag} color", cs1, color, FWD_ATOL),
+              check_close(f"B3b {tag} median depth", as1[:, 0], aux[:, 0],
+                          FWD_ATOL),
+              check_close(f"B3b {tag} T", as1[:, 1], aux[:, 1], FINAL_T_ATOL))
+    check_equal(f"B3b {tag} saturation depth", as1[:, 2:], aux[:, 2:])
+    return e3a, e3b, dict(c0=c0, a0=a0, k0=k0, ev_i=ev_i, cp0=cp0, ap0=ap0,
+                          ev_t=ev_t, color=color, aux=aux)
+
+
 def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     """B3a-d each against its plain version, fed the plain version's inputs
-    (carries included); then the composed split render and its gradients
-    (kernels all the way) against B1/B2 on the same scene."""
+    (carries included; B3b the plain B3a's outputs, which it finishes in
+    place); then the split render and its gradients (kernels all the way)
+    against B1/B2 on the same scene."""
     import torch
 
     from splatam_torch.render import raster
@@ -568,35 +612,8 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     out = {}
     for carry, nfeat in ((True, sp.nfeat), (False, min(sp.nfeat, 4))):
         tag = f"{name} carry_depth={carry}"
-        c1, a1, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx, chunk,
-                                                      carry)
-        torch.cuda.synchronize()
-        c0, a0, k0, ev_i = raster.raster_split_int_fwd_plain(
-            sp.attrs, b, gx, chunk, carry)
-        e3a = max(check_close(f"B3a {tag} color", c1, c0, FWD_ATOL),
-                  check_close(f"B3a {tag} median depth", a1[:, 0], a0[:, 0],
-                              FWD_ATOL),
-                  check_close(f"B3a {tag} T", a1[:, 1], a0[:, 1], FINAL_T_ATOL),
-                  check_close(f"B3a {tag} carry T, depth", k1[:, :2],
-                              k0[:, :2], FINAL_T_ATOL))
-        check_equal(f"B3a {tag} saturation depth", a1[:, 2:], a0[:, 2:])
-        check_equal(f"B3a {tag} carry death", k1[:, 0] < 0, k0[:, 0] < 0)
-        check_equal(f"B3a {tag} carry candidate", k1[:, 2], k0[:, 2])
-
-        cp1, ap1 = raster.raster_split_tail_fwd_cuda(sp.attrs, b, k0, gx,
-                                                     chunk, carry)
-        torch.cuda.synchronize()
-        cp0, ap0, ev_t = raster.raster_split_tail_fwd_plain(
-            sp.attrs, b, k0, gx, chunk, carry)
-        e3b = max(check_close(f"B3b {tag} color", cp1, cp0, FWD_ATOL),
-                  check_close(f"B3b {tag} median depth", ap1[:, :, 0],
-                              ap0[:, :, 0], FWD_ATOL),
-                  check_close(f"B3b {tag} T", ap1[:, :, 1], ap0[:, :, 1],
-                              FINAL_T_ATOL))
-        check_equal(f"B3b {tag} saturation depth", ap1[:, :, 2:],
-                    ap0[:, :, 2:])
-
-        color, aux = raster.compose_split(b, c0, a0, cp0, ap0)
+        e3a, e3b, plain = check_split_fwd(tag, sp, carry)
+        color, aux = plain["color"], plain["aux"]
         g_color, g_aux = cotangents(color, aux, nfeat, carry, rng)
         bwd_args = (gx, chunk, color, aux, g_color, g_aux, nfeat, carry)
         g1, bc1 = raster.raster_split_int_bwd_cuda(sp.attrs, b, *bwd_args)
@@ -613,9 +630,8 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
 
         # the split path on the card against the aligned kernels
         ca, aa = raster.raster_fwd_cuda(*al.args, carry)
-        cs, as_ = raster.compose_split(
-            b, c1, a1, *raster.raster_split_tail_fwd_cuda(sp.attrs, b, k1, gx,
-                                                          chunk, carry))
+        cs, as_, _ = raster.raster_split_fwd_cuda(sp.attrs, b, gx, chunk,
+                                                  carry)
         e_sa = max(check_close(f"split vs aligned {tag} color", cs, ca,
                                FWD_ATOL),
                    check_close(f"split vs aligned {tag} median depth",
@@ -639,16 +655,16 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
             f"B3a={e3a:.3g} B3b={e3b:.3g} B3c={e3c:.3g}/{s3c:.3g} "
             f"B3d={e3d:.3g}/{s3d:.3g}; vs aligned fwd {e_sa:.3g} grad "
             f"{e_gsa:.3g}/{s_gsa:.3g}")
-        out[carry] = dict(k0=k0, ev_i=ev_i, ev_t=ev_t, color=color, aux=aux)
+        out[carry] = plain
     return out
 
 
 def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
-    """B1, B2, B3c and B3d against their plain versions at the staged
-    batches of CHUNKS (the split binned at each), in the full and the
-    narrowed setting. B1 gets the plain forward's checks; B2 and B3c the
-    same forward outputs and cotangents as their plain versions; B3d the
-    plain B3c carry."""
+    """B1, B2 and B3a-d against their plain versions at the staged batches
+    of CHUNKS (the split binned at each), in the full and the narrowed
+    setting. B1 gets the plain forward's checks, B3a and B3b those of
+    ``check_split_fwd``; B2 and B3c the same forward outputs and cotangents
+    as their plain versions; B3d the plain B3c carry."""
     import torch
 
     from splatam_torch.render import raster
@@ -675,11 +691,8 @@ def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
             g0 = raster.raster_bwd_plain(*al.args, c, a, g_color, g_aux, nfeat,
                                          carry)
             e2, s2 = check_grad(f"B2 {tag}", g1, g0)
-            ci, ai, k = raster.raster_split_int_fwd_cuda(sp.attrs, b, gx,
-                                                         chunk, carry)
-            color, aux = raster.compose_split(
-                b, ci, ai, *raster.raster_split_tail_fwd_cuda(
-                    sp.attrs, b, k, gx, chunk, carry))
+            e3a, e3b, plain = check_split_fwd(tag, sp, carry)
+            color, aux = plain["color"], plain["aux"]
             bargs = (gx, chunk, color, aux, g_color, g_aux, nfeat, carry)
             g1, bc1 = raster.raster_split_int_bwd_cuda(sp.attrs, b, *bargs)
             torch.cuda.synchronize()
@@ -693,13 +706,15 @@ def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
             torch.cuda.synchronize()
             gt0 = raster.raster_split_tail_bwd_plain(sp.attrs, b, bc0, *bargs)
             e4, s4 = check_grad(f"B3d {tag}", gt1, gt0)
-            for kname, e in (("B1", e1), ("B2", e2), ("B3c", e3), ("B3d", e4)):
+            for kname, e in (("B1", e1), ("B2", e2), ("B3a", e3a),
+                             ("B3b", e3b), ("B3c", e3), ("B3d", e4)):
                 errs[kname] = max(errs[kname], e)
             log(f"[kernels] {name:12s} chunk={chunk} carry_depth={carry!s:5s} "
-                f"nfeat={nfeat} B1 {e1:.3g} B2 {e2:.3g}/{s2:.3g} B3c "
-                f"{e3:.3g}/{s3:.3g} B3d {e4:.3g}/{s4:.3g} (NCt="
-                f"{b.tmeta.shape[0]}; err/scale, limit {GRAD_TOL:g})")
-        del al, sp, b
+                f"nfeat={nfeat} B1 {e1:.3g} B2 {e2:.3g}/{s2:.3g} B3a "
+                f"{e3a:.3g} B3b {e3b:.3g} B3c {e3:.3g}/{s3:.3g} B3d "
+                f"{e4:.3g}/{s4:.3g} (NCt={b.tmeta.shape[0]}; err/scale, "
+                f"limit {GRAD_TOL:g})")
+        del al, sp, b, plain
         torch.cuda.empty_cache()
 
 
@@ -822,9 +837,10 @@ def split_bounds(s: Setup, ev_i, ev_t, nfeat_bwd):
         # color and aux out, carry (3 rows) out
         "B3a": bound_ms(attrs + gid_i + ranges + t * (2 * block + 3 * row),
                         pairs_i * fwd),
-        # carries in, color and aux pair blocks out
+        # carries in; the tail tiles' color in and out, aux rows 0-2 out
         "B3b": bound_ms(attrs + gid_t + tables + carried * 3 * row
-                        + nct * 2 * 2 * block, pairs_t * fwd),
+                        + int(tail.sum()) * (2 * block + 3 * row),
+                        pairs_t * fwd),
         # color, aux and both cotangents in, gradients and carry out
         "B3c": bound_ms(attrs + gid_i + ranges + t * (4 * block + 2 * row)
                         + attrs, pairs_i * bwd),
@@ -874,15 +890,20 @@ def phase_timing(aligned, split, dev):
     sb, gx = sp.binned, sp.grid_x
     bargs = (gx, CHUNK, o["color"], o["aux"], g_color, g_aux, nfeat, carry)
     _, bcarry = raster.raster_split_int_bwd_cuda(sp.attrs, sb, *bargs)
+    # B3b finishes B3a's outputs in place: its plain version is the plain
+    # tail and compose_split (the color it adds into accumulates over the
+    # timed calls; the work does not change)
+    ci, ai = o["c0"].clone(), o["a0"].clone()
     runs = {
         "B3a": (lambda: raster.raster_split_int_fwd_cuda(
                     sp.attrs, sb, gx, CHUNK, carry),
                 lambda: raster.raster_split_int_fwd_plain(
                     sp.attrs, sb, gx, CHUNK, carry)),
         "B3b": (lambda: raster.raster_split_tail_fwd_cuda(
-                    sp.attrs, sb, o["k0"], gx, CHUNK, carry),
-                lambda: raster.raster_split_tail_fwd_plain(
-                    sp.attrs, sb, o["k0"], gx, CHUNK, carry)),
+                    sp.attrs, sb, o["k0"], gx, CHUNK, ci, ai, carry),
+                lambda: raster.compose_split(
+                    sb, o["c0"], o["a0"], *raster.raster_split_tail_fwd_plain(
+                        sp.attrs, sb, o["k0"], gx, CHUNK, carry)[:2])),
         "B3c": (lambda: raster.raster_split_int_bwd_cuda(sp.attrs, sb, *bargs),
                 lambda: raster.raster_split_int_bwd_plain(sp.attrs, sb, *bargs)),
         "B3d": (lambda: raster.raster_split_tail_bwd_cuda(
@@ -892,6 +913,10 @@ def phase_timing(aligned, split, dev):
     }
     for k, (kernel, plain) in runs.items():
         times[k] = (cuda_ms(kernel, 20), cuda_ms(plain, 2, warmup=0))
+    # what B3b's in-place write took off the card's split forward: the
+    # compose of per-chunk pair blocks into the tiles, a dozen tensor ops
+    compose_ms = cuda_ms(lambda: raster.compose_split(
+        sb, o["c0"], o["a0"], o["cp0"], o["ap0"]), 20)
     sbounds, spairs = split_bounds(sp, o["ev_i"], o["ev_t"], nfeat)
     bounds.update(sbounds)
     log(f"[timing] 200k scene: K={bench.binned.num_instances} instances; "
@@ -902,6 +927,8 @@ def phase_timing(aligned, split, dev):
         ms, plain = times[kname]
         log(f"[timing] {kname}: {ms:.4f} ms kernel, {plain:.2f} ms plain, "
             f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+    log(f"[timing] compose_split on the card (no longer on the CUDA path): "
+        f"{compose_ms:.4f} ms")
     split_ms = sum(times[k][0] for k in ("B3a", "B3b", "B3c", "B3d"))
     log(f"[timing] split forward + backward {split_ms:.4f} ms against "
         f"aligned {times['B1'][0] + times['B2'][0]:.4f} ms")

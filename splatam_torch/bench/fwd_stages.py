@@ -8,7 +8,9 @@ the aligned layout at chunk ``CHUNK``, untrimmed, with the six mapping
 channels and no median depth. Successive differences price the stages;
 each stage's registers per thread and resident blocks per SM are the
 runtime's (``cudaFuncGetAttributes``,
-``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The ``blend`` stage
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); B1 itself
+(``raster_fwd.cu``) closes the table, read the same way, so that ``blend``
+can be held to it. The ``blend`` stage
 is held to B1's plain version (color 1e-5 + 1e-4 rel, final T 2e-5,
 saturation depth exact) before it is timed; ``warp_slots`` counts the
 work B1 does on the stream. A measurement probe, not a port of a TPU
@@ -34,7 +36,8 @@ WHAT = {
     "staging": "every batch staged into shared memory",
     "alpha": "eval_pair's alpha, every pair of the range",
     "scan": "transmittance, pixel death, the tile's exit",
-    "blend": "the 8-channel blend: B1",
+    "blend": "the 8-channel blend: B1's loop",
+    "B1": "B1 itself (raster_fwd.cu), against blend",
 }
 # probe_fwd(attrs, gid, ranges, num_tiles, grid_x, stage, color, aux, stream)
 PROBE_KERNEL = raster.CudaKernel("probe_fwd", "probe_fwd", 3, 3, 2)
@@ -70,15 +73,23 @@ def check_blend(attrs, binned, grid_x):
 
 def occupancy(stage: str) -> tuple[int, int]:
     """(registers per thread, resident blocks per SM) of ``stage``'s
-    kernel on the current card, from the CUDA runtime."""
-    PROBE_KERNEL._entry()  # builds the library
-    fn = ctypes.CDLL(str(raster._library_path("probe_fwd"))).probe_fwd_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    kernel, or of B1 itself at chunk CHUNK with no median depth (``"B1"``),
+    on the current card, from the CUDA runtime."""
+    kernel = raster.FWD_KERNEL if stage == "B1" else PROBE_KERNEL
+    kernel._entry()  # builds the library
+    lib = ctypes.CDLL(str(raster._library_path(kernel.source)))
+    ptr = ctypes.POINTER(ctypes.c_int)
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = fn(STAGES.index(stage), ctypes.byref(regs), ctypes.byref(blocks))
+    if stage == "B1":
+        fn = lib.raster_fwd_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ptr]
+        rc = fn(CHUNK, 0, ctypes.byref(regs), ctypes.byref(blocks))
+    else:
+        fn = lib.probe_fwd_occupancy
+        fn.argtypes = [ctypes.c_int, ptr, ptr]
+        rc = fn(STAGES.index(stage), ctypes.byref(regs), ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"probe_fwd_occupancy: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
     return regs.value, blocks.value
 
 
@@ -126,9 +137,9 @@ def warp_slots(attrs, binned, grid_x, chunk) -> dict:
 
 
 def run(n=200_000, w=1200, h=680, iters=20):
-    """Time every stage. Prints the table; returns {stage: ms per pass}
-    with the tile count under ``"tiles"`` and ``warp_slots``' counts under
-    ``"counts"``."""
+    """Time every stage, then B1. Prints the table; returns {stage or
+    ``"B1"``: ms per pass} with the tile count under ``"tiles"`` and
+    ``warp_slots``' counts under ``"counts"``."""
     prog = setup(f"aligned+c{CHUNK}+notrim", n=n, w=w, h=h)
     attrs, binned, grid_x = prog.stream_inputs()
     dev = attrs.device
@@ -137,6 +148,9 @@ def run(n=200_000, w=1200, h=680, iters=20):
     ms = {s: time_ms(lambda s=s: stage_cuda(s, attrs, binned, grid_x),
                      iters, dev)
           for s in STAGES}
+    ms["B1"] = time_ms(lambda: raster.raster_fwd_cuda(
+        attrs, binned.sorted_gid, binned.ranges, grid_x, CHUNK, False),
+        iters, dev)
     print(f"[fwd_stages] {device_name(dev)}: B1 stage ablation, {n} gaussians "
           f"at {w}x{h}, aligned, chunk {CHUNK}, untrimmed, "
           f"K={binned.num_instances}, {tiles} tile blocks, {iters} passes",
@@ -145,7 +159,7 @@ def run(n=200_000, w=1200, h=680, iters=20):
           f"{'delta':>8s} {'regs':>4s} {'blocks/SM':>9s}  what the stage adds",
           flush=True)
     prev = None
-    for s in STAGES:
+    for s in STAGES + ("B1",):
         ns = ms[s] * 1e6 / tiles
         delta = "" if prev is None else f"{ns - prev:+8.1f}"
         regs, blocks = occupancy(s)

@@ -82,3 +82,17 @@ extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
         attrs, sorted_gid, ranges, grid_x, chunk, color, aux);
   return (int)cudaGetLastError();
 }
+
+// B1's registers per thread and its resident blocks per SM on this card at
+// `chunk`, as the runtime reports them for its launch.
+extern "C" int raster_fwd_occupancy(int chunk, int carry_depth, int* regs,
+                                    int* blocks) {
+  const void* k = carry_depth ? (const void*)raster_fwd_kernel<true>
+                              : (const void*)raster_fwd_kernel<false>;
+  cudaFuncAttributes a;
+  const cudaError_t rc = cudaFuncGetAttributes(&a, k);
+  if (rc != cudaSuccess) return (int)rc;
+  *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, NPIX, fwd_smem_bytes(chunk));
+}

@@ -7,32 +7,40 @@
 // layout (render/binning.py::BinnedSplit) keeps every tile's whole chunks in
 // an interior region and pairs the tiles' sub-chunk residues two per chunk
 // in a tail region; a tile's state crosses from one to the other through a
-// per-tile carry (T, 3, 256) f32, channel-major:
-//   row 0  T, negated where the pixel is dead (T itself stays >= 1e-4)
-//   row 1  median-depth sum so far
-//   row 2  saturation candidate: the largest depth of the last batch the
-//          interior composited (0 where the tile has no interior)
+// per-tile carry (T, 3, 256) f32 (raster_common.cuh's CARRY_ROWS).
 //
-// B3a: one block per tile, one thread per pixel, the tile's interior range
-// in batches of `chunk` staged in shared memory (B1's loop). It writes the
-// tile's color and aux as B1 would for that range, and the carry. A tile
-// with no residue ends here; the compose takes its aux from this kernel.
+// B3a is B1's body with the carry (raster_common.cuh's fwd_tile): one block
+// per tile, one thread per pixel, the tile's interior range in batches of
+// `chunk` staged in shared memory (fwd_stage), each warp's share taken in
+// sub-batches of FWD_SUB = 8 instances (the alphas side by side, the
+// transmittance scan in registers, the blend as fused multiply-adds), a
+// warp whose pixels are all dead skipping the rest. It writes the tile's
+// color and aux as B1 would for that range, and the carry. A tile with no
+// interior gets color 0, T 1, median-depth sum 0 and saturation depth
+// 1e30: the outputs of an empty tile.
 //
-// B3b: one block per tail chunk, 2 x 256 threads: threads [0, 256) are
-// segment A's pixels (rows [0, send) of the chunk, tile_a), threads
-// [256, 512) segment B's (rows [send, lim), tile_b). Each half starts from
-// its tile's carry, or from T = 1 where the tile has no interior, and
-// writes its tile's final aux and its color contribution into pair blocks
-// (NCt, 2, 8, 256). Saturation depth as `_aux_pm` (pallas_raster.py:1087):
+// B3b: one block per tail chunk, 2 x 256 threads: warps 0-7 are segment A's
+// pixels (rows [0, send) of the chunk, tile_a), warps 8-15 segment B's
+// (rows [send, lim), tile_b), so that no warp straddles the two and each
+// half runs the same sub-batch loop over its own rows. A sub-batch of 8
+// that crossed `send` would mix the two segments' rows, so each segment is
+// staged at its own FWD_SUB-aligned slot, A at 0 and B at send rounded up,
+// with zero slots (alpha 0) between and after (tail_stride). Each half
+// starts from its tile's carry, or from T = 1 where the tile has no
+// interior. A tile has at most one tail segment, so each half owns its
+// tile's outputs and finishes them in place, with no atomics: it adds its
+// color into B3a's (one rounded add: the compose's color_i + colorp) and
+// overwrites aux rows 0-2 (median-depth sum, T, saturation depth; rows 3-7
+// stay B3a's zeros). Saturation depth as `_aux_pm` (pallas_raster.py:1087):
 // a segment whose pixels are all dead at the end takes the largest depth of
 // its own rows, or the carry's candidate where the tile was dead on entry;
-// otherwise 1e30. The B half of a single-residue chunk writes zeros.
+// otherwise 1e30. The B half of a single-residue chunk has no tile and
+// writes nothing.
 //
-// Both replay raster_common.cuh's rounded arithmetic, so the composed
-// split render equals B1's but for the order of the color sums.
-// Bound on an H100: ~20 f32 operations and one exp per (pixel, instance)
-// pair, compute-bound as B1; B3b also idles the half of a single-residue
-// chunk's block that has no rows.
+// Both replay raster_common.cuh's rounded arithmetic, so the split render
+// equals B1's but for the order of the color sums. Bound on an H100: ~20
+// f32 operations and one exp per (pixel, instance) pair, compute-bound as
+// B1.
 #include "raster_common.cuh"
 
 using namespace splat;
@@ -63,8 +71,8 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
                       const int* __restrict__ tsl,
                       const int* __restrict__ tbt,
                       const float* __restrict__ carry, int tail_base,
-                      int grid_x, int chunk, float* __restrict__ colorp,
-                      float* __restrict__ auxp) {
+                      int grid_x, int chunk, float* __restrict__ color,
+                      float* __restrict__ aux) {
   extern __shared__ float s[];  // fwd_stage's layout, stride tail_stride
   const int c = blockIdx.x;
   const int seg = threadIdx.x / NPIX;  // 0: segment A, 1: segment B
@@ -102,19 +110,21 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
                          dsum);
   const bool alive_a = __syncthreads_count(seg == 0 && !dead) > 0;
   const bool alive_b = __syncthreads_count(seg == 1 && !dead) > 0;
+  if (n == 0) return;  // the B half of a single-residue chunk: no tile
 
-  const int64_t base = ((int64_t)c * 2 + seg) * NFEAT * NPIX + p;
-  if (n == 0) {  // the B half of a single-residue chunk
-    const float zero[NFEAT] = {};
-    write_fwd(colorp, auxp, base, zero, 0.0f, 0.0f, 0.0f);
-    return;
-  }
   float sat = SAT_INF;
   if (!(seg == 0 ? alive_a : alive_b))
     sat = (seg == 0 ? entry_alive_a : entry_alive_b)
               ? max_depth(s, slot, slot + n, stride)
               : cand;
-  write_fwd(colorp, auxp, base, acc, dsum, T, sat);
+  // the tile's one tail segment: its final outputs, in place of B3a's
+  const int64_t base = (int64_t)tile * NFEAT * NPIX + p;
+#pragma unroll
+  for (int f = 0; f < NFEAT; ++f)
+    color[base + f * NPIX] = __fadd_rn(color[base + f * NPIX], acc[f]);
+  aux[base] = dsum;
+  aux[base + NPIX] = T;
+  aux[base + 2 * NPIX] = sat;  // rows 3-7: B3a's zeros
 }
 
 extern "C" int raster_split_int_fwd(const float* attrs, const int* sorted_gid,
@@ -138,8 +148,8 @@ extern "C" int raster_split_tail_fwd(const float* attrs, const int* sorted_gid,
                                      const int* tmeta, const int* tsl,
                                      const int* tbt, const float* carry,
                                      int num_tail, int tail_base, int grid_x,
-                                     int chunk, int carry_depth, float* colorp,
-                                     float* auxp, cudaStream_t stream) {
+                                     int chunk, int carry_depth, float* color,
+                                     float* aux, cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tail == 0) return 0;
   const size_t smem =
@@ -147,10 +157,10 @@ extern "C" int raster_split_tail_fwd(const float* attrs, const int* sorted_gid,
   if (carry_depth)
     split_tail_fwd_kernel<true><<<num_tail, 2 * NPIX, smem, stream>>>(
         attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
-        colorp, auxp);
+        color, aux);
   else
     split_tail_fwd_kernel<false><<<num_tail, 2 * NPIX, smem, stream>>>(
         attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
-        colorp, auxp);
+        color, aux);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,10 @@ backward returns (N, 16) per-gaussian gradients. Two stream layouts
 - aligned (``Binned``): B1 forward, B2 backward, one tile range each
   (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``);
 - split (``BinnedSplit``): B3a interior forward with a per-tile carry, B3b
-  residue-pair tail forward seeded from it, composed here; B3c interior
-  backward with its own carry, B3d tail backward
-  (``csrc/raster_split_fwd.cu``, ``csrc/raster_split_bwd.cu``).
+  residue-pair tail forward seeded from it, which on the card finishes its
+  tiles' outputs in place (the plain versions write pair blocks, composed
+  by ``compose_split``); B3c interior backward with its own carry, B3d
+  tail backward (``csrc/raster_split_fwd.cu``, ``csrc/raster_split_bwd.cu``).
 
 B4 (``csrc/raster_fisher.cu``, ``fisher_moments``) replays the aligned
 forward under a constant seed cotangent and sums squared per-pixel
@@ -206,7 +207,7 @@ BWD_KERNEL = CudaKernel("raster_bwd", "raster_bwd", 3, 5, 5)
 SPLIT_INT_FWD_KERNEL = CudaKernel("raster_split_fwd", "raster_split_int_fwd",
                                   3, 4, 3)
 # raster_split_tail_fwd(attrs, gid, tmeta, tsl, tbt, carry, num_tail,
-#                       tail_base, grid_x, chunk, carry_depth, colorp, auxp,
+#                       tail_base, grid_x, chunk, carry_depth, color, aux,
 #                       stream)
 SPLIT_TAIL_FWD_KERNEL = CudaKernel("raster_split_fwd",
                                    "raster_split_tail_fwd", 6, 5, 2)
@@ -334,26 +335,39 @@ def raster_split_int_fwd_cuda(attrs, binned: BinnedSplit, grid_x, chunk,
 
 
 def raster_split_tail_fwd_cuda(attrs, binned: BinnedSplit, carry, grid_x,
-                               chunk, carry_depth=True):
-    """Launch B3b (not at all when there is no tail chunk). Returns
-    (colorp, auxp), each (NCt, 2, 8, NPIX): per tail chunk, segment A's and
-    B's color contribution and their tiles' final aux."""
+                               chunk, color, aux, carry_depth=True):
+    """Launch B3b (not at all when there is no tail chunk) on B3a's
+    ``color`` and ``aux`` (T, 8, NPIX), which it finishes in place: each
+    tail segment adds its color into its tile's and writes the tile's aux
+    rows 0-2. Returns (color, aux): ``compose_split`` of the plain B3a's
+    and B3b's outputs."""
     _check_common(attrs, binned.sorted_gid, binned.int_ranges, chunk)
     _check_aligned(attrs)
     nct, tail_base = _tail_args(binned, chunk)
     t = binned.int_ranges.shape[0]
     _check(carry, "carry", torch.float32, (t, FWD_CARRY_ROWS, NPIX))
-    colorp = torch.empty((nct, 2, NFEAT_PAD, NPIX), dtype=torch.float32,
-                         device=attrs.device)
-    auxp = torch.empty_like(colorp)
+    for name, x in (("color", color), ("aux", aux)):
+        _check(x, name, torch.float32, (t, NFEAT_PAD, NPIX))
     if nct:
         SPLIT_TAIL_FWD_KERNEL.launch(
             attrs.device, attrs.data_ptr(), binned.sorted_gid.data_ptr(),
             binned.tmeta.data_ptr(), binned.tsl.data_ptr(),
             binned.tbt.data_ptr(), carry.data_ptr(), nct, tail_base, grid_x,
-            chunk, int(carry_depth), colorp.data_ptr(), auxp.data_ptr(),
+            chunk, int(carry_depth), color.data_ptr(), aux.data_ptr(),
         )
-    return colorp, auxp
+    return color, aux
+
+
+def raster_split_fwd_cuda(attrs, binned: BinnedSplit, grid_x, chunk,
+                          carry_depth=True):
+    """The split forward on the card: B3a, then B3b in place on its
+    outputs. Returns (color, aux, carry): the tiles' final outputs and
+    B3a's carry."""
+    color, aux, carry = raster_split_int_fwd_cuda(attrs, binned, grid_x,
+                                                  chunk, carry_depth)
+    raster_split_tail_fwd_cuda(attrs, binned, carry, grid_x, chunk, color,
+                               aux, carry_depth)
+    return color, aux, carry
 
 
 def raster_split_int_bwd_cuda(attrs, binned: BinnedSplit, grid_x, chunk,
@@ -708,10 +722,11 @@ def raster_split_tail_fwd_plain(attrs, binned: BinnedSplit, carry, grid_x,
 
 
 def compose_split(binned: BinnedSplit, color_i, aux_i, colorp, auxp):
-    """Per-tile final outputs of the split render (pallas_raster.py:1781):
-    color is the interior's plus the tail segment's contribution; aux is
-    the tail's where the tile has one, else the interior's, else that of
-    an empty tile (T 1, never saturated)."""
+    """Per-tile final outputs of the split render (pallas_raster.py:1781)
+    from the plain versions' outputs: color is the interior's plus the tail
+    segment's contribution; aux is the tail's where the tile has one, else
+    the interior's, else that of an empty tile (T 1, never saturated). The
+    CPU path's compose, and the reference of B3b's in-place write."""
     zero = color_i.new_zeros(())
     mi = binned.mask_int[:, None, None]
     color = torch.where(mi, color_i, zero)
@@ -868,21 +883,20 @@ def _cotangents(color, aux, g_color, g_aux):
 
 
 class _RasterSplitFn(torch.autograd.Function):
-    """B3a + B3b + compose forward; B3c + B3d backward into one table."""
+    """B3a + B3b forward (composed by ``compose_split`` on the CPU); B3c +
+    B3d backward into one table."""
 
     @staticmethod
     def forward(ctx, attrs, binned, grid_x, chunk, nfeat, carry_depth):
         if attrs.is_cuda:
-            color_i, aux_i, carry = raster_split_int_fwd_cuda(
-                attrs, binned, grid_x, chunk, carry_depth)
-            colorp, auxp = raster_split_tail_fwd_cuda(
-                attrs, binned, carry, grid_x, chunk, carry_depth)
+            color, aux, _ = raster_split_fwd_cuda(attrs, binned, grid_x, chunk,
+                                                  carry_depth)
         else:
             color_i, aux_i, carry, _ = raster_split_int_fwd_plain(
                 attrs, binned, grid_x, chunk, carry_depth)
             colorp, auxp, _ = raster_split_tail_fwd_plain(
                 attrs, binned, carry, grid_x, chunk, carry_depth)
-        color, aux = compose_split(binned, color_i, aux_i, colorp, auxp)
+            color, aux = compose_split(binned, color_i, aux_i, colorp, auxp)
         ctx.save_for_backward(attrs, color, aux)
         ctx.binned = binned
         ctx.args = (grid_x, chunk, nfeat, carry_depth)

@@ -356,6 +356,40 @@ def test_split_matches_aligned_plain(name, chunk, carry_depth):
     assert torch.equal(bcarry[:, 0] < 0, carry[:, 0] < 0)
 
 
+@pytest.mark.parametrize("name,chunk", [("dense_saturate", 64),
+                                        ("saturating", 64),
+                                        ("interior_only", 128)])
+def test_split_tail_finishes_its_tiles_in_place(name, chunk):
+    """What B3b's in-place write on the card relies on, on the plain
+    versions: every tile has at most one tail segment; B3a's outputs for a
+    tile with no interior are compose_split's empty block bit for bit; and
+    each tail segment's color added into its tile's B3a color, with aux
+    rows 0-2 overwritten by the segment's, is compose_split's output bit for
+    bit. The scenes: tails after an interior and alone; tails whose tile
+    died in its interior; interiors and empty tiles with no tail."""
+    sb, attrs, gx = _port_bin(_scenes()[name], chunk)
+    tail = sb.mask_a | sb.mask_b
+    assert not (sb.mask_a & sb.mask_b).any()
+    blk = (sb.tail_cid * 2 + sb.tail_role).long()[tail]
+    assert blk.unique().numel() == blk.numel()
+    c_i, a_i, carry, _ = raster.raster_split_int_fwd_plain(attrs, sb, gx, chunk)
+    cp, ap, _ = raster.raster_split_tail_fwd_plain(attrs, sb, carry, gx, chunk)
+    color, aux = raster.compose_split(sb, c_i, a_i, cp, ap)
+
+    no_int = ~sb.mask_int
+    e_color, e_aux = raster.compose_split(
+        sb._replace(mask_int=torch.zeros_like(sb.mask_int)), c_i, a_i,
+        cp[:0], ap[:0])
+    assert torch.equal(c_i[no_int], e_color[no_int])
+    assert torch.equal(a_i[no_int], e_aux[no_int])
+
+    c_t, a_t = c_i.clone(), a_i.clone()
+    c_t[tail] = c_t[tail] + cp.reshape(-1, raster.NFEAT_PAD, raster.NPIX)[blk]
+    a_t[tail, :3] = ap.reshape(-1, raster.NFEAT_PAD, raster.NPIX)[blk, :3]
+    assert torch.equal(c_t, color) and torch.equal(a_t, aux)
+    assert not a_i[:, 3:].any()
+
+
 def test_means2d_dummy_gradient_matches_jax():
     """The gradient of a screen-space offset on the means (what Inria
     densification accumulates) against the JAX oracle's, in the aligned
