@@ -11,9 +11,9 @@
 // the plain PyTorch version in render/raster.py, which rounds after every
 // tensor op. Only expf may differ from torch.exp in the last place. The
 // sums of the blend and of the backward's pixel sums are taken in other
-// orders (the forward's fused multiply-adds, the tensor cores' products) and differ
-// from the plain version's in the last bits; no sum feeds back into alpha,
-// T or a pixel's death.
+// orders (the forward's fused multiply-adds, the tensor cores' products)
+// and differ from the plain version's in the last bits; no sum feeds back
+// into alpha, T or a pixel's death.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -619,47 +619,36 @@ __device__ __forceinline__ F* fwd_feats(F* s, int stride) {
   return s + FWD_GEOM_ROWS * stride;
 }
 
-// Stage instances [b, b + n) of the sorted stream in the forward's layout
-// at slots [slot, slot + n) (slot a multiple of FWD_SUB), gathered by gid
-// with one 16-byte load per (instance, quarter row), by threads t, t + nt,
-// ...; the slots from slot + n to the next multiple of FWD_SUB get zeros.
-// The (N, 16) table's rows are 64 bytes, so a quarter is 16-byte aligned
-// where the table is.
-__device__ __forceinline__ void fwd_stage_at(float* s,
-                                             const float* __restrict__ attrs,
-                                             const int* __restrict__ sorted_gid,
-                                             int b, int n, int stride,
-                                             int slot, int t, int nt) {
+// Stage instances [b, b + n) of the sorted stream in the forward's layout,
+// gathered by gid with one 16-byte load per (instance, quarter row), by
+// every thread of the block; slots [n, stride) get zeros. The (N, 16)
+// table's rows are 64 bytes, so a quarter is 16-byte aligned where the
+// table is.
+__device__ __forceinline__ void fwd_stage(float* s,
+                                          const float* __restrict__ attrs,
+                                          const int* __restrict__ sorted_gid,
+                                          int b, int n, int stride) {
   float* feat = fwd_feats(s, stride);
   const int npad = (n + FWD_SUB - 1) / FWD_SUB * FWD_SUB;
-  for (int i = t; i < npad * 4; i += nt) {
-    const int j = i >> 2, q = i & 3, k = slot + j;
+  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) {
+    const int j = i >> 2, q = i & 3;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (j < n)
       v = reinterpret_cast<const float4*>(
           attrs + (int64_t)sorted_gid[b + j] * ROWS)[q];
     if (q == 0) {
-      s[ROW_X * stride + k] = v.x;
-      s[ROW_Y * stride + k] = v.y;
-      s[ROW_CA * stride + k] = v.z;
-      s[ROW_CB * stride + k] = v.w;
+      s[ROW_X * stride + j] = v.x;
+      s[ROW_Y * stride + j] = v.y;
+      s[ROW_CA * stride + j] = v.z;
+      s[ROW_CB * stride + j] = v.w;
     } else if (q == 1) {
-      s[ROW_CC * stride + k] = v.x;
-      s[ROW_OP * stride + k] = v.y;
-      s[ROW_DEPTH * stride + k] = v.z;  // v.w: the gid row, not needed
+      s[ROW_CC * stride + j] = v.x;
+      s[ROW_OP * stride + j] = v.y;
+      s[ROW_DEPTH * stride + j] = v.z;  // v.w: the gid row, not needed
     } else {
-      reinterpret_cast<float4*>(feat + 8 * k)[q - 2] = v;
+      reinterpret_cast<float4*>(feat + 8 * j)[q - 2] = v;
     }
   }
-}
-
-// Stage instances [b, b + n) at slot 0, by every thread of the block.
-__device__ __forceinline__ void fwd_stage(float* s,
-                                          const float* __restrict__ attrs,
-                                          const int* __restrict__ sorted_gid,
-                                          int b, int n, int stride) {
-  fwd_stage_at(s, attrs, sorted_gid, b, n, stride, 0, threadIdx.x,
-               blockDim.x);
 }
 
 // (a) The alphas of instances [jb, jb + FWD_SUB) for this pixel. They do not
@@ -720,18 +709,18 @@ __device__ __forceinline__ void sub_blend(const float* s, int jb, int stride,
   }
 }
 
-// (a)-(c) over the staged slots [j0, j1) for one pixel (j0 a multiple of
-// FWD_SUB; the slots from j1 to the next multiple zero), front to back; a
-// warp whose pixels are all dead skips the rest. Every lane of a warp must
-// take the same range. DEPTH: whether the median-depth sum is taken, a
-// template argument so that the loop without it keeps no register for it.
+// (a)-(c) over the staged slots [0, n) for one pixel (the slots from n to
+// the next multiple of FWD_SUB zero), front to back; a warp whose pixels
+// are all dead skips the rest. DEPTH: whether the median-depth sum is
+// taken, a template argument so that the loop without it keeps no register
+// for it.
 template <bool DEPTH>
-__device__ __forceinline__ void fwd_sub_batches(const float* s, int j0,
-                                                int j1, int stride, float px,
+__device__ __forceinline__ void fwd_sub_batches(const float* s, int n,
+                                                int stride, float px,
                                                 float py, float& T,
                                                 bool& dead, float* acc,
                                                 float& dsum) {
-  for (int jb = j0; jb < j1; jb += FWD_SUB) {  // warp-uniform
+  for (int jb = 0; jb < n; jb += FWD_SUB) {  // warp-uniform
     if (__all_sync(0xffffffffu, dead)) break;
     float w[FWD_SUB];
     sub_alphas(s, jb, stride, px, py, w);
@@ -783,7 +772,7 @@ __device__ __forceinline__ void fwd_tile(float* s,
     const int n = min(chunk, end - b);
     fwd_stage(s, attrs, sorted_gid, b, n, stride);
     __syncthreads();
-    fwd_sub_batches<DEPTH>(s, 0, n, stride, px, py, T, dead, acc, dsum);
+    fwd_sub_batches<DEPTH>(s, n, stride, px, py, T, dead, acc, dsum);
     // (also the barrier before the next batch's staging)
     const bool saturated = __syncthreads_count(!dead) == 0;
     if (saturated || (CARRY && b + chunk >= end)) {  // the last batch

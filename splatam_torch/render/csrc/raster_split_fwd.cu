@@ -19,28 +19,28 @@
 // interior gets color 0, T 1, median-depth sum 0 and saturation depth
 // 1e30: the outputs of an empty tile.
 //
-// B3b: one block per tail chunk, 2 x 256 threads: warps 0-7 are segment A's
-// pixels (rows [0, send) of the chunk, tile_a), warps 8-15 segment B's
-// (rows [send, lim), tile_b), so that no warp straddles the two and each
-// half runs the same sub-batch loop over its own rows. A sub-batch of 8
-// that crossed `send` would mix the two segments' rows, so each segment is
-// staged at its own FWD_SUB-aligned slot, A at 0 and B at send rounded up,
-// with zero slots (alpha 0) between and after (tail_stride). Each half
-// starts from its tile's carry, or from T = 1 where the tile has no
-// interior. A tile has at most one tail segment, so each half owns its
-// tile's outputs and finishes them in place, with no atomics: it adds its
-// color into B3a's (one rounded add: the compose's color_i + colorp) and
-// overwrites aux rows 0-2 (median-depth sum, T, saturation depth; rows 3-7
-// stay B3a's zeros). Saturation depth as `_aux_pm` (pallas_raster.py:1087):
-// a segment whose pixels are all dead at the end takes the largest depth of
-// its own rows, or the carry's candidate where the tile was dead on entry;
-// otherwise 1e30. The B half of a single-residue chunk has no tile and
+// B3b: one 256-thread block per (tail chunk, segment), one thread per pixel
+// of the segment's tile: segment A is rows [0, send) of the chunk (tile_a),
+// segment B rows [send, lim) (tile_b). The block stages its own rows at
+// slot 0, so no sub-batch of 8 mixes the two segments, and runs B1's
+// sub-batch loop over them (fwd_sub_batches), from its tile's carry, or
+// from T = 1 where the tile has no interior. (A 512-thread block per chunk,
+// one segment per half, measured 1.4x slower: the half with the shorter
+// segment waits at the block's barriers, and 2 such blocks fit an SM.) A
+// tile has at most one tail segment, so each block owns its tile's outputs
+// and finishes them in place, with no atomics: it adds its color into B3a's
+// (one rounded add: the compose's color_i + colorp) and overwrites aux rows
+// 0-2 (median-depth sum, T, saturation depth; rows 3-7 stay B3a's zeros).
+// Saturation depth as `_aux_pm` (pallas_raster.py:1087): a segment whose
+// pixels are all dead at the end takes the largest depth of its own rows,
+// or the carry's candidate where the tile was dead on entry; otherwise
+// 1e30. The B block of a single-residue chunk has no rows and no tile, and
 // writes nothing.
 //
 // Both replay raster_common.cuh's rounded arithmetic, so the split render
-// equals B1's but for the order of the color sums. Bound on an H100: ~20
-// f32 operations and one exp per (pixel, instance) pair, compute-bound as
-// B1.
+// equals B1's but for the order of the color sums. Bound on an H100: B3a
+// by its ~20 f32 operations and one exp per (pixel, instance) pair, as B1;
+// B3b, with fewer pairs, by its bytes (its tiles' color read and written).
 #include "raster_common.cuh"
 
 using namespace splat;
@@ -58,13 +58,8 @@ split_int_fwd_kernel(const float* __restrict__ attrs,
                         color, aux, carry);
 }
 
-// B3b's shared memory: the two segments at their own FWD_SUB-aligned slots
-__host__ __device__ inline int tail_stride(int chunk) {
-  return fwd_stride(chunk + FWD_SUB);
-}
-
 template <bool DEPTH>
-__global__ void __launch_bounds__(2 * NPIX)
+__global__ void __launch_bounds__(NPIX)
 split_tail_fwd_kernel(const float* __restrict__ attrs,
                       const int* __restrict__ sorted_gid,
                       const int* __restrict__ tmeta,
@@ -73,19 +68,18 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
                       const float* __restrict__ carry, int tail_base,
                       int grid_x, int chunk, float* __restrict__ color,
                       float* __restrict__ aux) {
-  extern __shared__ float s[];  // fwd_stage's layout, stride tail_stride
+  extern __shared__ float s[];  // fwd_stage's layout
   const int c = blockIdx.x;
-  const int seg = threadIdx.x / NPIX;  // 0: segment A, 1: segment B
-  const int p = threadIdx.x % NPIX;
+  const int seg = blockIdx.y;  // 0: segment A, 1: segment B
+  const int p = threadIdx.x;
   const int sl = tsl[c];
   const int send = sl >> 16, lim = sl & 0xFFFF;
-  if (lim == 0) return;  // block-uniform: an empty chunk writes nothing
-  const int stride = tail_stride(chunk);
-  // the segment's rows of the chunk, and its first slot in shared memory
+  // the segment's rows [j0, j0 + n) of the chunk
   const int j0 = seg == 0 ? 0 : send, n = seg == 0 ? send : lim - send;
-  const int slot = seg == 0 ? 0 : fwd_stride(send);
-  fwd_stage_at(s, attrs, sorted_gid, tail_base + c * chunk + j0, n, stride,
-               slot, p, NPIX);
+  // block-uniform: an empty chunk, or the B half of a single-residue chunk
+  if (n == 0) return;
+  const int stride = fwd_stride(chunk);
+  fwd_stage(s, attrs, sorted_gid, tail_base + c * chunk + j0, n, stride);
   const int meta = seg == 0 ? tmeta[c] : tbt[c];
   const int tile = meta >> 1;
   const float px = (float)((tile % grid_x) * TILE + p % TILE);
@@ -99,24 +93,16 @@ split_tail_fwd_kernel(const float* __restrict__ attrs,
     dsum = cr[NPIX];
     cand = cr[2 * NPIX];
   }
-  // (the first count is also the barrier after the staging)
-  const bool entry_alive_a = __syncthreads_count(seg == 0 && !dead) > 0;
-  const bool entry_alive_b = __syncthreads_count(seg == 1 && !dead) > 0;
+  // (also the barrier after the staging)
+  const bool entry_alive = __syncthreads_count(!dead) > 0;
   float acc[NFEAT];
 #pragma unroll
   for (int f = 0; f < NFEAT; ++f) acc[f] = 0.0f;
-  // a warp lies in one segment, so its sub-batch loop stays warp-uniform
-  fwd_sub_batches<DEPTH>(s, slot, slot + n, stride, px, py, T, dead, acc,
-                         dsum);
-  const bool alive_a = __syncthreads_count(seg == 0 && !dead) > 0;
-  const bool alive_b = __syncthreads_count(seg == 1 && !dead) > 0;
-  if (n == 0) return;  // the B half of a single-residue chunk: no tile
+  fwd_sub_batches<DEPTH>(s, n, stride, px, py, T, dead, acc, dsum);
+  const bool alive = __syncthreads_count(!dead) > 0;
 
   float sat = SAT_INF;
-  if (!(seg == 0 ? alive_a : alive_b))
-    sat = (seg == 0 ? entry_alive_a : entry_alive_b)
-              ? max_depth(s, slot, slot + n, stride)
-              : cand;
+  if (!alive) sat = entry_alive ? max_depth(s, 0, n, stride) : cand;
   // the tile's one tail segment: its final outputs, in place of B3a's
   const int64_t base = (int64_t)tile * NFEAT * NPIX + p;
 #pragma unroll
@@ -152,14 +138,14 @@ extern "C" int raster_split_tail_fwd(const float* attrs, const int* sorted_gid,
                                      float* aux, cudaStream_t stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   if (num_tail == 0) return 0;
-  const size_t smem =
-      (size_t)(FWD_GEOM_ROWS + NFEAT) * tail_stride(chunk) * sizeof(float);
+  const size_t smem = fwd_smem_bytes(chunk);
+  const dim3 grid(num_tail, 2);
   if (carry_depth)
-    split_tail_fwd_kernel<true><<<num_tail, 2 * NPIX, smem, stream>>>(
+    split_tail_fwd_kernel<true><<<grid, NPIX, smem, stream>>>(
         attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
         color, aux);
   else
-    split_tail_fwd_kernel<false><<<num_tail, 2 * NPIX, smem, stream>>>(
+    split_tail_fwd_kernel<false><<<grid, NPIX, smem, stream>>>(
         attrs, sorted_gid, tmeta, tsl, tbt, carry, tail_base, grid_x, chunk,
         color, aux);
   return (int)cudaGetLastError();
