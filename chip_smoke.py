@@ -741,6 +741,21 @@ def check_goldens(name, scene, dev):
         fail(f"golden {name}: {off:.3%} of depth pixels off by > 1e-3")
 
 
+def bench_scene(n, w, h):
+    """The benchmark's scene (``bench.scene.make_scene``) as the mapping
+    loss renders it: isotropic scales, sigmoid opacities; scene_setup's
+    ``mapping_feats`` adds the fused channels."""
+    from splatam_torch.bench.scene import make_scene
+
+    p, w, h, k = make_scene(n, w, h)
+    return (
+        p["means3D"], p["rgb_colors"],
+        (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
+        np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"],
+        w, h, k,
+    )
+
+
 def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     rng = np.random.default_rng(0)
     errs = {k: 0.0 for k in KERNEL_NAMES}
@@ -764,17 +779,7 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
                                                 layout="split"),
                               al, rng, errs)
         compare_chunks(kind, small_scene(kind), dev, rng, errs)
-    # the 200k scene as the mapping loss renders it: isotropic scales,
-    # sigmoid opacities, 6 fused channels
-    from splatam_torch.bench.scene import make_scene
-
-    p, w, h, k = make_scene(*bench_size)
-    scene = (
-        p["means3D"], p["rgb_colors"],
-        (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
-        np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"],
-        w, h, k,
-    )
+    scene = bench_scene(*bench_size)
     bench = scene_setup(scene, dev, mapping_feats=True)
     outs = compare_kernels("bench_200k", bench, rng, errs)
     compare_fisher("bench_200k", bench, outs[True][0], errs)

@@ -48,8 +48,7 @@ def stage_cuda(stage: str, attrs, binned, grid_x):
     Returns (color, aux), each (T, 8, NPIX); before ``blend`` color row 0
     holds the stage's per-pixel sum and the other rows are zero."""
     raster._check_common(attrs, binned.sorted_gid, binned.ranges, CHUNK)
-    if attrs.data_ptr() % 16:
-        raise ValueError("attrs must be 16-byte aligned")
+    raster._check_aligned(attrs)
     t = binned.ranges.shape[0]
     color = attrs.new_empty((t, raster.NFEAT_PAD, raster.NPIX))
     aux = torch.empty_like(color)

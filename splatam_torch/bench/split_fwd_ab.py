@@ -56,19 +56,12 @@ def _smoke():
 def run(n=200_000, w=1200, h=680, iters=20):
     import torch
 
-    from splatam_torch.bench.scene import make_scene
     from splatam_torch.bench.timing import time_ms
     from splatam_torch.render import raster
 
     smoke = _smoke()
     dev = torch.device("cuda")
-    p, w, h, k = make_scene(n, w, h)
-    scene = (
-        p["means3D"], p["rgb_colors"],
-        (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
-        np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"],
-        w, h, k,
-    )
+    scene = smoke.bench_scene(n, w, h)
     al = smoke.scene_setup(scene, dev, mapping_feats=True)
     sp = smoke.scene_setup(scene, dev, mapping_feats=True, layout="split")
     sb, gx, carry = sp.binned, sp.grid_x, False
@@ -78,13 +71,12 @@ def run(n=200_000, w=1200, h=680, iters=20):
     ci, ai, k1 = raster.raster_split_int_fwd_cuda(sp.attrs, sb, gx, CHUNK,
                                                   carry)
     if in_place:
-        def tail():
-            return raster.raster_split_tail_fwd_cuda(
-                sp.attrs, sb, k1, gx, CHUNK, ci.clone(), ai.clone(), carry)
-        cs, as_ = tail()
+        cs, as_ = raster.raster_split_tail_fwd_cuda(
+            sp.attrs, sb, k1, gx, CHUNK, ci.clone(), ai.clone(), carry)
     else:
-        cs, as_ = raster.compose_split(sb, ci, ai, *raster.raster_split_tail_fwd_cuda(
-            sp.attrs, sb, k1, gx, CHUNK, carry))
+        cs, as_ = raster.compose_split(
+            sb, ci, ai, *raster.raster_split_tail_fwd_cuda(
+                sp.attrs, sb, k1, gx, CHUNK, carry))
     ca, aa = raster.raster_fwd_cuda(*al.args, carry)
     if not (torch.allclose(cs, ca, atol=1e-5, rtol=1e-4)
             and torch.allclose(as_[:, 1], aa[:, 1], atol=1e-6, rtol=0.0)

@@ -271,7 +271,7 @@ def _check_grad_inputs(t, color, aux, g_color, g_aux, nfeat):
 
 
 def _check_aligned(attrs):
-    if attrs.data_ptr() % 16:  # the forward gathers the table's rows as float4s
+    if attrs.data_ptr() % 16:  # the forward gathers its rows as float4s
         raise ValueError("attrs must be 16-byte aligned")
 
 
