@@ -741,21 +741,6 @@ def check_goldens(name, scene, dev):
         fail(f"golden {name}: {off:.3%} of depth pixels off by > 1e-3")
 
 
-def bench_scene(n, w, h):
-    """The benchmark's scene (``bench.scene.make_scene``) as the mapping
-    loss renders it: isotropic scales, sigmoid opacities; scene_setup's
-    ``mapping_feats`` adds the fused channels."""
-    from splatam_torch.bench.scene import make_scene
-
-    p, w, h, k = make_scene(n, w, h)
-    return (
-        p["means3D"], p["rgb_colors"],
-        (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
-        np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"],
-        w, h, k,
-    )
-
-
 def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     rng = np.random.default_rng(0)
     errs = {k: 0.0 for k in KERNEL_NAMES}
@@ -779,7 +764,17 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
                                                 layout="split"),
                               al, rng, errs)
         compare_chunks(kind, small_scene(kind), dev, rng, errs)
-    scene = bench_scene(*bench_size)
+    # the 200k scene as the mapping loss renders it: isotropic scales,
+    # sigmoid opacities, 6 fused channels
+    from splatam_torch.bench.scene import make_scene
+
+    p, w, h, k = make_scene(*bench_size)
+    scene = (
+        p["means3D"], p["rgb_colors"],
+        (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32),
+        np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"],
+        w, h, k,
+    )
     bench = scene_setup(scene, dev, mapping_feats=True)
     outs = compare_kernels("bench_200k", bench, rng, errs)
     compare_fisher("bench_200k", bench, outs[True][0], errs)
@@ -922,6 +917,17 @@ def phase_timing(aligned, split, dev):
     # compose of per-chunk pair blocks into the tiles, a dozen tensor ops
     compose_ms = cuda_ms(lambda: raster.compose_split(
         sb, o["c0"], o["a0"], o["cp0"], o["ap0"]), 20)
+    # one differentiable split forward (B3a, B3b, no compose) on the host's
+    # clock between synchronisations: what the loops wait for
+    attrs_g = sp.attrs.clone().requires_grad_(True)
+    host = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raster.rasterize_tiles(attrs_g, sb, gx, CHUNK, nfeat, carry)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    split_host_ms = float(np.median(host[1:]))
     sbounds, spairs = split_bounds(sp, o["ev_i"], o["ev_t"], nfeat)
     bounds.update(sbounds)
     log(f"[timing] 200k scene: K={bench.binned.num_instances} instances; "
@@ -933,7 +939,8 @@ def phase_timing(aligned, split, dev):
         log(f"[timing] {kname}: {ms:.4f} ms kernel, {plain:.2f} ms plain, "
             f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
     log(f"[timing] compose_split on the card (no longer on the CUDA path): "
-        f"{compose_ms:.4f} ms")
+        f"{compose_ms:.4f} ms; one split forward on the host's clock, "
+        f"synced: {split_host_ms:.4f} ms (median of 20)")
     split_ms = sum(times[k][0] for k in ("B3a", "B3b", "B3c", "B3d"))
     log(f"[timing] split forward + backward {split_ms:.4f} ms against "
         f"aligned {times['B1'][0] + times['B2'][0]:.4f} ms")

@@ -73,20 +73,18 @@ def check_blend(attrs, binned, grid_x):
 def occupancy(stage: str) -> tuple[int, int]:
     """(registers per thread, resident blocks per SM) of ``stage``'s
     kernel, or of B1 itself at chunk CHUNK with no median depth (``"B1"``),
-    on the current card, from the CUDA runtime."""
-    kernel = raster.FWD_KERNEL if stage == "B1" else PROBE_KERNEL
+    on the current card, from the CUDA runtime. Both libraries export
+    ``<entry>_occupancy(int, int* regs, int* blocks)``: the int is the
+    probe's stage, or B1's chunk."""
+    kernel, index = ((raster.FWD_KERNEL, CHUNK) if stage == "B1"
+                     else (PROBE_KERNEL, STAGES.index(stage)))
     kernel._entry()  # builds the library
     lib = ctypes.CDLL(str(raster._library_path(kernel.source)))
+    fn = getattr(lib, f"{kernel.symbol}_occupancy")
     ptr = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int, ptr, ptr]
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    if stage == "B1":
-        fn = lib.raster_fwd_occupancy
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ptr]
-        rc = fn(CHUNK, 0, ctypes.byref(regs), ctypes.byref(blocks))
-    else:
-        fn = lib.probe_fwd_occupancy
-        fn.argtypes = [ctypes.c_int, ptr, ptr]
-        rc = fn(STAGES.index(stage), ctypes.byref(regs), ctypes.byref(blocks))
+    rc = fn(index, ctypes.byref(regs), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
     return regs.value, blocks.value

@@ -84,11 +84,10 @@ extern "C" int raster_fwd(const float* attrs, const int* sorted_gid,
 }
 
 // B1's registers per thread and its resident blocks per SM on this card at
-// `chunk`, as the runtime reports them for its launch.
-extern "C" int raster_fwd_occupancy(int chunk, int carry_depth, int* regs,
-                                    int* blocks) {
-  const void* k = carry_depth ? (const void*)raster_fwd_kernel<true>
-                              : (const void*)raster_fwd_kernel<false>;
+// `chunk` with no median depth, as the runtime reports them for its launch;
+// the signature is probe_fwd_occupancy's, with the chunk for the stage.
+extern "C" int raster_fwd_occupancy(int chunk, int* regs, int* blocks) {
+  const void* k = (const void*)raster_fwd_kernel<false>;
   cudaFuncAttributes a;
   const cudaError_t rc = cudaFuncGetAttributes(&a, k);
   if (rc != cudaSuccess) return (int)rc;

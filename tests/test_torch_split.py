@@ -358,7 +358,8 @@ def test_split_matches_aligned_plain(name, chunk, carry_depth):
 
 @pytest.mark.parametrize("name,chunk", [("dense_saturate", 64),
                                         ("saturating", 64),
-                                        ("interior_only", 128)])
+                                        ("interior_only", 128),
+                                        ("dense_aniso", 32)])
 def test_split_tail_finishes_its_tiles_in_place(name, chunk):
     """What B3b's in-place write on the card relies on, on the plain
     versions: every tile has at most one tail segment; B3a's outputs for a
