@@ -20,8 +20,8 @@ Phases, each of which must pass:
    gaussians with op exp(power) within 2% of 1/255 at many pixels), and
    ``bench.py``'s scene (200k gaussians at 1200x680) with the fused
    6-channel mapping features; B3a-d also on an interior-only scene. B1,
-   B2 and B3a-d also at chunk 256 and 512 (past 48 KB of shared memory
-   for the backward) on every scene. Each split kernel gets
+   B2, B3a-d and B4 also at chunk 256 and 512 (past 48 KB of shared
+   memory for the backward and B4) on every scene. Each split kernel gets
    the plain version's inputs (carries included); B3b, which finishes its
    tiles in place, runs on the plain B3a's outputs and is held against
    ``compose_split`` of the plain B3a's and B3b's. The split render on the
@@ -108,8 +108,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 128
 FWD_ATOL, FWD_RTOL, FINAL_T_ATOL = 1e-5, 1e-4, 2e-5
 GRAD_TOL = 5e-5  # of the largest gradient magnitude (tests/test_pallas.py)
-# B1, B2 and B3a-d are also held to their plain versions at these staged
-# batches (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's launch)
+# B1, B2, B3a-d and B4 are also held to their plain versions at these
+# staged batches (512 = MAX_CHUNK: past 48 KB of shared memory, the opt-in's
+# launch)
 CHUNKS = (256, 512)
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W limit): f32
 # outside the tensor cores, and HBM bandwidth
@@ -318,7 +319,8 @@ def phase_build():
 # 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
 # two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
 # mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
-# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on.
+# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on;
+# B4's 24 (4 k-steps x 2 n-tiles of moments x 3 passes).
 MIN_HMMA = {
     ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
     ("probe_ilp", "kernelILi3E"): 288,
@@ -327,6 +329,7 @@ MIN_HMMA = {
     ("raster_bwd", "raster_bwd_kernel"): 20,
     ("raster_split_bwd", "split_int_bwd_kernel"): 20,
     ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
+    ("raster_fisher", "raster_fisher_kernel"): 24,
     ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
     ("probe_ablate", "kernelILi9E"): 20,
 }
@@ -519,7 +522,7 @@ def compare_fisher(name, s: Setup, color, errs):
     if m1.shape != m0.shape or bool(bad.any()):
         fail(f"B4 {name}: per-column err/scale {rel.tolist()}")
     errs["B4"] = max(errs["B4"], float(err.max()))
-    log(f"[fisher] {name:12s} K={s.binned.num_instances} B4 max abs err "
+    log(f"[fisher] {name:21s} K={s.binned.num_instances} B4 max abs err "
         f"{float(err.max()):.3g}, worst column err/scale {float(rel.max()):.3g} "
         f"(limit {FISHER_TOL:g}); column scales "
         + " ".join(f"{v:.2g}" for v in scale.tolist()))
@@ -659,12 +662,14 @@ def compare_split_kernels(name, sp: Setup, al: Setup, rng, errs):
     return out
 
 
-def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
+def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False,
+                   fisher=True):
     """B1, B2 and B3a-d against their plain versions at the staged batches
     of CHUNKS (the split binned at each), in the full and the narrowed
     setting. B1 gets the plain forward's checks, B3a and B3b those of
     ``check_split_fwd``; B2 and B3c the same forward outputs and cotangents
-    as their plain versions; B3d the plain B3c carry."""
+    as their plain versions; B3d the plain B3c carry. With ``fisher``, B4
+    too (``compare_fisher``, on the plain forward's color blocks)."""
     import torch
 
     from splatam_torch.render import raster
@@ -684,6 +689,8 @@ def compare_chunks(name, scene, dev, rng, errs, mapping_feats=False):
                      check_close(f"B1 {tag} final T", a[:, 1], a0[:, 1],
                                  FINAL_T_ATOL))
             check_equal(f"B1 {tag} saturation depth", a[:, 2:], a0[:, 2:])
+            if fisher and carry:
+                compare_fisher(f"{name} chunk={chunk}", al, c0, errs)
             g_color, g_aux = cotangents(c, a, nfeat, carry, rng)
             g1 = raster.raster_bwd_cuda(*al.args, c, a, g_color, g_aux, nfeat,
                                         carry)
@@ -763,7 +770,8 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
         compare_split_kernels(kind, scene_setup(small_scene(kind), dev,
                                                 layout="split"),
                               al, rng, errs)
-        compare_chunks(kind, small_scene(kind), dev, rng, errs)
+        compare_chunks(kind, small_scene(kind), dev, rng, errs,
+                       fisher=kind != "interior_only")
     # the 200k scene as the mapping loss renders it: isotropic scales,
     # sigmoid opacities, 6 fused channels
     from splatam_torch.bench.scene import make_scene
@@ -934,10 +942,13 @@ def phase_timing(aligned, split, dev):
         f"aligned {pairs} (pixel, instance) pairs evaluated, split {spairs} "
         f"(NCi={sb.chunk_meta.shape[0]} interior, NCt={sb.tmeta.shape[0]} "
         f"tail chunks of {CHUNK})")
+    regs, blocks = raster.FISHER_KERNEL.occupancy(CHUNK)
     for kname in times:
         ms, plain = times[kname]
         log(f"[timing] {kname}: {ms:.4f} ms kernel, {plain:.2f} ms plain, "
-            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})"
+            + (f"; {regs} registers, {blocks} blocks per SM" if kname == "B4"
+               else ""))
     log(f"[timing] compose_split on the card (no longer on the CUDA path): "
         f"{compose_ms:.4f} ms; one split forward on the host's clock, "
         f"synced: {split_host_ms:.4f} ms (median of 20)")

@@ -22,7 +22,6 @@ Usage: python -m splatam_torch.bench.fwd_stages [--iters 20] [--n N]
 from __future__ import annotations
 
 import argparse
-import ctypes
 
 import torch
 
@@ -73,21 +72,10 @@ def check_blend(attrs, binned, grid_x):
 def occupancy(stage: str) -> tuple[int, int]:
     """(registers per thread, resident blocks per SM) of ``stage``'s
     kernel, or of B1 itself at chunk CHUNK with no median depth (``"B1"``),
-    on the current card, from the CUDA runtime. Both libraries export
-    ``<entry>_occupancy(int, int* regs, int* blocks)``: the int is the
-    probe's stage, or B1's chunk."""
-    kernel, index = ((raster.FWD_KERNEL, CHUNK) if stage == "B1"
-                     else (PROBE_KERNEL, STAGES.index(stage)))
-    kernel._entry()  # builds the library
-    lib = ctypes.CDLL(str(raster._library_path(kernel.source)))
-    fn = getattr(lib, f"{kernel.symbol}_occupancy")
-    ptr = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.c_int, ptr, ptr]
-    regs, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = fn(index, ctypes.byref(regs), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
-    return regs.value, blocks.value
+    on the current card, from the CUDA runtime."""
+    if stage == "B1":
+        return raster.FWD_KERNEL.occupancy(CHUNK)
+    return PROBE_KERNEL.occupancy(STAGES.index(stage))
 
 
 def warp_slots(attrs, binned, grid_x, chunk) -> dict:

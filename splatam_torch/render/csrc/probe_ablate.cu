@@ -113,7 +113,7 @@ ablate_kernel(const float* __restrict__ attrs,
         acc = __fadd_rn(acc, __fmul_rn(q.alpha, T));
         T = test;
       }
-    } else if (STAGE == GC) {  // bwd_pair's head: pair_dpower
+    } else if (STAGE == GC) {  // the backward's head: pair_dpower
       for (int j = 0; j < n && !dead; ++j) {
         PairGrad g;
         if (!pair_dpower(s, j, chunk, px, py, gcol, ga, T, dead, accw, g))

@@ -1,8 +1,9 @@
 // Shared per-(pixel, instance) arithmetic of the forward and backward
 // compositing kernels: aligned layout (raster_fwd.cu B1, raster_bwd.cu B2)
 // and split layout (raster_split_fwd.cu B3a/B3b, raster_split_bwd.cu
-// B3c/B3d); also of the Fisher kernel (raster_fisher.cu B4) and the stage
-// probes of B2 (probe_ablate.cu P1) and B1 (probe_fwd.cu).
+// B3c/B3d); also of the Fisher kernel (raster_fisher.cu B4, on the
+// backward's pair_dpower and tensor-core pieces) and the stage probes of B2
+// (probe_ablate.cu P1) and B1 (probe_fwd.cu).
 //
 // Every operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
 // ...), which the compiler never contracts into an FMA. So both kernels
@@ -121,6 +122,28 @@ __device__ __forceinline__ void grad_inputs(const float* color,
   gdep = g_aux[base];
 }
 
+// The channel sum gc = sum_f gcol_f feat_f of staged instance j: from this
+// pixel's dL/dcolor (B2, B3c, B3d), or read from a per-instance table
+// (StagedGc: B4, whose seed is constant over the tile, so that gc is taken
+// once per staged instance, in the same rounded operations and order).
+__device__ __forceinline__ float pair_gc(const float* gcol, const float* s,
+                                         int j, int chunk) {
+  float gc = 0.0f;
+#pragma unroll
+  for (int f = 0; f < NFEAT; ++f)
+    gc = __fadd_rn(gc, __fmul_rn(gcol[f], s[(ROW_FEAT0 + f) * chunk + j]));
+  return gc;
+}
+
+struct StagedGc {
+  const float* gc;  // (chunk,): gc of each staged instance
+};
+
+__device__ __forceinline__ float pair_gc(StagedGc g, const float*, int j,
+                                         int) {
+  return g.gc[j];
+}
+
 // The analytic backward of one (pixel, staged instance j) pair up to
 // dpower, replaying the forward's recursion (advances dead and the running
 // prefix accw of w * gc; the caller advances T to `test`):
@@ -130,7 +153,8 @@ __device__ __forceinline__ void grad_inputs(const float* color,
 //            and the power was not clamped
 //   d/dopacity = dalpha exp(power).
 // Returns whether the pair contributes; false where the pixel is dead,
-// alpha is zero, or the pixel dies at this instance.
+// alpha is zero, or the pixel dies at this instance. G: where gc comes
+// from (pair_gc).
 struct PairGrad {
   Pair q;
   float test;    // T after the pair
@@ -139,11 +163,11 @@ struct PairGrad {
   float dpower;  // d/dpower
 };
 
+template <typename G>
 __device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
-                                            float px, float py,
-                                            const float* gcol, float ga,
-                                            float T, bool& dead, float& accw,
-                                            PairGrad& g) {
+                                            float px, float py, G gcol,
+                                            float ga, float T, bool& dead,
+                                            float& accw, PairGrad& g) {
   if (dead) return false;
   g.q = eval_pair(s, j, chunk, px, py);
   if (!(g.q.alpha > 0.0f)) return false;
@@ -152,10 +176,7 @@ __device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
     dead = true;
     return false;
   }
-  float gc = 0.0f;
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f)
-    gc = __fadd_rn(gc, __fmul_rn(gcol[f], s[(ROW_FEAT0 + f) * chunk + j]));
+  const float gc = pair_gc(gcol, s, j, chunk);
   g.w = __fmul_rn(g.q.alpha, T);
   accw = __fadd_rn(accw, __fmul_rn(g.w, gc));
   const float suffix = __fsub_rn(ga, accw);
@@ -167,68 +188,13 @@ __device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
   return true;
 }
 
-// The whole analytic backward of one pair: pair_dpower, then d/ddepth at
-// the median crossing, d/dx, d/dy, d/dconic from dpower, and the features'
-// w dL/dcolor. Fills v (gradient rows of the instance from this pixel, zero
-// where the pair adds nothing), advances T, and returns whether the pair
-// contributed.
-__device__ __forceinline__ bool bwd_pair(const float* s, int j, int chunk,
-                                         float px, float py,
-                                         const float* gcol, float ga,
-                                         float gdep, int nfeat,
-                                         int carry_depth, float& T,
-                                         bool& dead, float& accw, float* v) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) v[r] = 0.0f;
-  PairGrad g;
-  if (!pair_dpower(s, j, chunk, px, py, gcol, ga, T, dead, accw, g))
-    return false;
-  const Pair& q = g.q;
-  const float a = s[ROW_CA * chunk + j];
-  const float bb = s[ROW_CB * chunk + j];
-  const float c = s[ROW_CC * chunk + j];
-  v[ROW_X] = -__fmul_rn(g.dpower, __fadd_rn(__fmul_rn(a, q.dx),
-                                            __fmul_rn(bb, q.dy)));
-  v[ROW_Y] = -__fmul_rn(g.dpower, __fadd_rn(__fmul_rn(c, q.dy),
-                                            __fmul_rn(bb, q.dx)));
-  v[ROW_CA] = __fmul_rn(g.dpower, __fmul_rn(-0.5f, __fmul_rn(q.dx, q.dx)));
-  v[ROW_CB] = -__fmul_rn(g.dpower, __fmul_rn(q.dx, q.dy));
-  v[ROW_CC] = __fmul_rn(g.dpower, __fmul_rn(-0.5f, __fmul_rn(q.dy, q.dy)));
-  v[ROW_OP] = g.dop;
-  if (carry_depth && T > 0.5f && g.test < 0.5f) v[ROW_DEPTH] = gdep;
-#pragma unroll
-  for (int f = 0; f < NFEAT; ++f)
-    if (f < nfeat) v[ROW_FEAT0 + f] = __fmul_rn(g.w, gcol[f]);
-  T = g.test;
-  return true;
-}
-
-// Sum one instance's gradient rows over the warp with shuffles and add
-// them to its gaussian's row of the (N, 16) table (B4). Every lane of the
-// warp must call it for the same instance.
-__device__ __forceinline__ void warp_add_rows(float* v, bool contrib,
-                                              int gid, float* grad) {
-  if (!__any_sync(0xffffffffu, contrib)) return;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[r] += __shfl_down_sync(0xffffffffu, v[r], off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    float* out = grad + (int64_t)gid * ROWS;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (v[r] != 0.0f) atomicAdd(out + r, v[r]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The backward of B2 (raster_bwd.cu), B3c and B3d (raster_split_bwd.cu):
 // the pixel sums of each instance's gradient rows on the tensor cores, in
 // the TPU kernel's moment form (`_bwd_chunk_body`, pallas_raster.py:903-952),
-// and a block-level reduction of them. B4 keeps bwd_pair and warp_add_rows
-// above.
+// and a block-level reduction of them. B4 (raster_fisher.cu) runs its own
+// batch on the same pieces: pair_dpower, the buffers' layout (wbuf_col,
+// wbuf_index), split_tf32, mma_tf32, load_a, part_put and slot_sum.
 //
 // Every pixel's thread walks the staged batch in order (pair_dpower: the
 // transmittance replay is sequential per pixel) and writes, for each
@@ -329,10 +295,16 @@ __device__ __forceinline__ int wbuf_col(int lane) {
   return (lane & ~7) | ((lane & 3) << 1) | ((lane >> 2) & 1);
 }
 
+// Where a (SUB, 32) buffer keeps sub-batch instance jj of the pixel at
+// column col.
+__device__ __forceinline__ int wbuf_index(int jj, int col) {
+  return jj * 32 + (col ^ ((jj & 3) << 3));
+}
+
 // Write this pixel's gated d/dopacity and w of sub-batch instance jj.
 __device__ __forceinline__ void wbuf_put(float* buf, int jj, int col,
                                          float dop, float w) {
-  const int i = jj * 32 + (col ^ ((jj & 3) << 3));
+  const int i = wbuf_index(jj, col);
   buf[i] = dop;
   buf[SUB * 32 + i] = w;
 }
@@ -452,11 +424,22 @@ __device__ __forceinline__ void part_put(float* slot, const float* cm,
   }
 }
 
+// Column c of sub-batch row i summed over the warps' slots (`wbuf`: warp
+// 0's buffers, each warp's `stride` floats after the last's).
+__device__ __forceinline__ float slot_sum(const float* wbuf, int i, int c,
+                                          int stride) {
+  const float* p = wbuf + i * 16 + (c ^ (((i >> 1) & 1) << 3));
+  float v = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) v += p[w * stride];
+  return v;
+}
+
 // The block-level reduction of a sub-batch starting at instance jb of n:
 // thread (i, c) = (tid / 16, tid % 16) returns column c of instance jb + i
-// summed over the warps' slots (`wbuf`: warp 0's buffers), or for columns
-// 6 and 7 the batch's sums added apart. Call after a __syncthreads() that
-// follows every warp's part_put.
+// summed over the warps' slots, or for columns 6 and 7 the batch's sums
+// added apart. Call after a __syncthreads() that follows every warp's
+// part_put.
 __device__ __forceinline__ float part_column(const float* wbuf,
                                              const float* apart, int jb,
                                              int n, int chunk) {
@@ -464,11 +447,7 @@ __device__ __forceinline__ float part_column(const float* wbuf,
   if (jb + i >= n) return 0.0f;
   if (c == COL_OP || c == COL_DEPTH)
     return apart[(c - COL_OP) * chunk + jb + i];
-  const float* p = wbuf + i * 16 + (c ^ (((i >> 1) & 1) << 3));
-  float v = 0.0f;
-#pragma unroll
-  for (int w = 0; w < NWARP; ++w) v += p[w * WBUF];
-  return v;
+  return slot_sum(wbuf, i, c, WBUF);
 }
 
 // Flush a sub-batch's column sums (v from part_column) into the (N, 16)

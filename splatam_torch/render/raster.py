@@ -187,6 +187,22 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def occupancy(self, arg: int) -> tuple[int, int]:
+        """(registers per thread, resident blocks per SM) of the kernel on
+        the current card, from the CUDA runtime, through its library's
+        ``<symbol>_occupancy(int, int* regs, int* blocks)``; the int is the
+        kernel's chunk, or a probe's stage."""
+        self._entry()  # builds the library
+        lib = ctypes.CDLL(str(_library_path(self.source)))
+        fn = getattr(lib, f"{self.symbol}_occupancy")
+        ptr = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [ctypes.c_int, ptr, ptr]
+        regs, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = fn(arg, ctypes.byref(regs), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
+        return regs.value, blocks.value
+
     def launch(self, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
@@ -816,6 +832,55 @@ def fisher_moments_plain(attrs, sorted_gid, ranges, grid_x, chunk, color,
         )
         mom.index_add_(0, gid[valid], m[valid])
     return mom
+
+
+def fisher_rows_from_moments(s, xl, yl, ca, cb, cc, op):
+    """B4's flush (``csrc/raster_fisher.cu::fisher_row``) in tensor ops:
+    one instance's (..., FISHER_ROWS) rows from the block's 16 columns
+    ``s`` (..., 16): 0-14 the pixel moments sum_p dop_g^2 x^i y^k
+    (i + k <= 4, ordered by degree, then by falling i; x, y the pixel's
+    offset from the tile centre; dop_g d/dopacity where the power was not
+    clamped, zero elsewhere), 15 the sum of dop^2 kept apart where it was.
+    ``xl``, ``yl``: the mean's offset from the tile centre; ``ca``, ``cb``,
+    ``cc`` the conic; ``op`` the opacity (each (...)). Nothing on the main
+    path calls it: the tests hold it against the direct sums."""
+    s = s.unbind(-1)
+    x, y = xl, yl
+    # t[m][k] = sum_p dop_g^2 (x - px)^m py^k: the binomial shift in x
+    t00, t01, t02, t03, t04 = s[0], s[2], s[5], s[9], s[14]
+    t10, t11 = x * s[0] - s[1], x * s[2] - s[4]
+    t12, t13 = x * s[5] - s[8], x * s[9] - s[13]
+    t20 = x * (x * s[0] - 2 * s[1]) + s[3]
+    t21 = x * (x * s[2] - 2 * s[4]) + s[7]
+    t22 = x * (x * s[5] - 2 * s[8]) + s[12]
+    t30 = x * (x * (x * s[0] - 3 * s[1]) + 3 * s[3]) - s[6]
+    t31 = x * (x * (x * s[2] - 3 * s[4]) + 3 * s[7]) - s[11]
+    t40 = x * (x * (x * (x * s[0] - 4 * s[1]) + 6 * s[3]) - 4 * s[6]) + s[10]
+    # m_mn = sum_p dop_g^2 dx^m dy^n: then in y
+    m20, m11 = t20, y * t10 - t11
+    m02 = y * (y * t00 - 2 * t01) + t02
+    m30, m21 = t30, y * t20 - t21
+    m12 = y * (y * t10 - 2 * t11) + t12
+    m03 = y * (y * (y * t00 - 3 * t01) + 3 * t02) - t03
+    m40, m31 = t40, y * t30 - t31
+    m22 = y * (y * t20 - 2 * t21) + t22
+    m13 = y * (y * (y * t10 - 3 * t11) + 3 * t12) - t13
+    m04 = y * (y * (y * (y * t00 - 4 * t01) + 6 * t02) - 4 * t03) + t04
+    a, b, c = ca, cb, cc
+    rows = [
+        a * a * m20 + 2 * a * b * m11 + b * b * m02,
+        a * b * m20 + (a * c + b * b) * m11 + b * c * m02,
+        0.5 * (a * m30 + b * m21),
+        a * m21 + b * m12,
+        0.5 * (a * m12 + b * m03),
+        b * b * m20 + 2 * b * c * m11 + c * c * m02,
+        0.5 * (b * m30 + c * m21),
+        b * m21 + c * m12,
+        0.5 * (b * m12 + c * m03),
+        0.25 * m40, 0.5 * m31, 0.25 * m22, m22, 0.5 * m13, 0.25 * m04,
+    ]
+    o2 = op * op
+    return torch.stack([r * o2 for r in rows] + [s[0] + s[15]], dim=-1)
 
 
 def fisher_moments(attrs, binned: Binned, grid_x: int, chunk: int,

@@ -178,6 +178,69 @@ def test_fisher_moments_plain_matches_jax(jax_moments, name):
     torch.testing.assert_close(shared, mom, rtol=0, atol=0)
 
 
+def _moment_cases(rng):
+    """B4's per-(tile, instance) inputs, made in numpy: a gated dop^2 per
+    pixel of a 16x16 tile (pixel coordinates offset from the tile centre),
+    the sum kept apart, and per instance the mean's offset from the tile
+    centre, a positive-definite conic and an opacity. Three groups of 40:
+    means inside the tile with footprints over it, means 100-600 px off it,
+    and narrow footprints (sigma 0.4-1.5 px) inside it."""
+    p = np.arange(raster.NPIX)
+    x, y = p % 16 - 7.5, p // 16 - 7.5
+    k = 40
+    inside = rng.uniform(-8, 8, (k, 2))
+    ang, dist = rng.uniform(0, 2 * np.pi, k), rng.uniform(100, 600, k)
+    far = np.stack([dist * np.cos(ang), dist * np.sin(ang)], -1)
+    narrow = rng.uniform(-7, 7, (k, 2))
+    mean = np.concatenate([inside, far, narrow])
+    dop = rng.normal(0, 1e-3, (3 * k, raster.NPIX))
+    dop *= rng.uniform(size=dop.shape) < 0.8  # pairs that add nothing
+    sigma = rng.uniform(0.4, 1.5, k)
+    r2 = ((x - narrow[:, :1]) ** 2 + (y - narrow[:, 1:]) ** 2)
+    foot = np.exp(-r2 / (2 * sigma[:, None] ** 2))
+    dop[2 * k:] *= foot * (foot > 1 / 255)
+    a = rng.uniform(0.01, 1.0, 3 * k)
+    c = rng.uniform(0.01, 1.0, 3 * k)
+    b = rng.uniform(-0.9, 0.9, 3 * k) * np.sqrt(a * c)
+    op = rng.uniform(0.1, 1.0, 3 * k)
+    apart = rng.uniform(0, 1e-6, 3 * k) * (rng.uniform(size=3 * k) < 0.2)
+    return x, y, dop, apart, mean, (a, b, c), op
+
+
+def test_fisher_rows_from_moments_match_the_direct_sums():
+    """B4's flush algebra: its 16 rows from the pixel moments equal the
+    direct sums of v_a v_b (a <= b) and of dop^2 to 1e-9 of each column's
+    largest value in float64; in float32, with every moment off by 2^-20 of
+    its own size (3xTF32's precision), within FISHER_TOL = 1e-4 of it."""
+    rng = np.random.default_rng(5)
+    x, y, dop, apart, mean, (a, b, c), op = _moment_cases(rng)
+    xl, yl = mean[:, :1], mean[:, 1:]
+    dx, dy = xl - x, yl - y
+    dpower = op[:, None] * dop
+    v = (dpower * -(a[:, None] * dx + b[:, None] * dy),
+         dpower * -(c[:, None] * dy + b[:, None] * dx),
+         dpower * (-0.5 * dx * dx), dpower * -(dx * dy),
+         dpower * (-0.5 * dy * dy))
+    direct = np.stack([(v[i] * v[j]).sum(-1) for i, j in raster.TRI_PAIRS]
+                      + [(dop * dop).sum(-1) + apart], -1)
+    basis = [x ** (d - e) * y ** e for d in range(5) for e in range(d + 1)]
+    s = np.stack([((dop * dop) * m).sum(-1) for m in basis] + [apart], -1)
+    scale = np.abs(direct).max(axis=0)
+    assert np.all(scale > 0)
+
+    def rows(s, dtype):
+        t = lambda z: torch.as_tensor(np.asarray(z, dtype))  # noqa: E731
+        return raster.fisher_rows_from_moments(
+            t(s), t(mean[:, 0]), t(mean[:, 1]), t(a), t(b), t(c),
+            t(op)).double().numpy()
+
+    err64 = np.abs(rows(s, np.float64) - direct).max(axis=0)
+    assert np.all(err64 <= 1e-9 * scale), err64 / scale
+    off = s * (1 + 2.0 ** -20 * rng.choice([-1.0, 1.0], s.shape))
+    err32 = np.abs(rows(off, np.float32) - direct).max(axis=0)
+    assert np.all(err32 <= FISHER_TOL * scale), err32 / scale
+
+
 def test_fisher_moments_needs_aligned_binning():
     means, _, opac, scales, quats = (torch.as_tensor(x) for x in _scene_a())
     attrs, _, cam = _port_setup(_scene_a())
