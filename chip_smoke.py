@@ -320,7 +320,7 @@ def phase_build():
 # two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
 # mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
 # k-steps x 2 moment and 3 feature passes), as P1's from `moments` on;
-# B4's f64 moments 32 (DMMA: 8 k-steps x 2 m-tiles x 2 n-tiles).
+# B4's 24 (4 k-steps x 2 n-tiles of moments x 3 passes).
 MIN_HMMA = {
     ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
     ("probe_ilp", "kernelILi3E"): 288,
@@ -329,16 +329,16 @@ MIN_HMMA = {
     ("raster_bwd", "raster_bwd_kernel"): 20,
     ("raster_split_bwd", "split_int_bwd_kernel"): 20,
     ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
-    ("raster_fisher", "raster_fisher_kernel"): 32,
+    ("raster_fisher", "raster_fisher_kernel"): 24,
     ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
     ("probe_ablate", "kernelILi9E"): 20,
 }
 
 
 def check_sass():
-    """Count the mma instructions (HMMA, and DMMA for f64) ptxas kept in
-    each tensor-core kernel: it may merge products it can prove equal, and
-    then a kernel would do, or a probe time, less work than it reports."""
+    """Count the mma instructions (HMMA) ptxas kept in each tensor-core
+    kernel: it may merge products it can prove equal, and then a kernel
+    would do, or a probe time, less work than it reports."""
     import shutil
 
     from splatam_torch.render import raster
@@ -353,7 +353,7 @@ def check_sass():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 counts[fn] = 0
-            elif fn is not None and ("HMMA" in line or "DMMA" in line):
+            elif fn is not None and "HMMA" in line:
                 counts[fn] += 1
         for (name, tag), least in MIN_HMMA.items():
             if name != src:

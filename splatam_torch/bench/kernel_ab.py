@@ -8,17 +8,16 @@ with the seed 1e-3 on RGB; each is timed with CUDA events over ``--iters``
 launches, ``--rounds`` times. B4 is also held to its plain version there:
 the worst column's max abs error over that column's largest magnitude.
 For each kernel function the script prints its registers (ptxas), its
-mma instructions (HMMA and DMMA, ``cuobjdump -sass``) and a digest of its
+mma instructions (HMMA, ``cuobjdump -sass``) and a digest of its
 SASS with addresses dropped (equal digests: the same instructions), and
 B4's registers and blocks per SM where its library exports
 ``raster_fisher_occupancy``. The last line is one JSON object.
 
-It imports whichever ``splatam_torch`` comes first on ``sys.path``, so it
-can time another checkout of the package that has the same wrappers:
-
-  PYTHONPATH=<checkout> python <this file> [--iters 20] [--rounds 3]
-
-On the card only.
+Usage: python -m splatam_torch.bench.kernel_ab [--iters 20] [--rounds 3]
+(on the card only). It needs no more of the package than the kernels'
+wrappers, so a copy of this file in another checkout's
+``splatam_torch/bench/`` times that checkout (older ones have no
+``CudaKernel.occupancy``: ``fisher_occupancy`` reads the entry itself).
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ import torch
 
 from splatam_torch.bench.scene import setup
 from splatam_torch.bench.timing import device_name, time_ms
+from splatam_torch.device import resolve_device
 from splatam_torch.render import raster
 
 CHUNK = 128
@@ -61,7 +61,7 @@ def sass_facts(src: str) -> dict:
 
     def close():
         if fn is not None:
-            mma = sum(1 for x in lines if "HMMA" in x or "DMMA" in x)
+            mma = sum(1 for x in lines if "HMMA" in x)
             out[fn] = (mma, hashlib.sha1("\n".join(lines).encode())
                        .hexdigest()[:12])
 
@@ -148,8 +148,7 @@ def main(argv=None):
     p.add_argument("--w", type=int, default=1200)
     p.add_argument("--h", type=int, default=680)
     a = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab times the kernels on a GPU: no CUDA here")
+    resolve_device(None)  # the card: raises without CUDA
     torch.backends.cuda.matmul.allow_tf32 = False
     regs = registers(raster.build_kernels(SOURCES))
     facts = {}

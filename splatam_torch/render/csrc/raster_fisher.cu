@@ -38,39 +38,38 @@
 // order as per pair). Each pixel's thread writes one value per pair into
 // its warp's buffer, dop_g^2; dop^2 where the power was clamped (never,
 // for a positive-definite conic) goes into the batch's sum kept apart.
-// Per warp sub-batch of SUB = 16 instances, mma.sync m8n8k4 f64 takes the
-// sums over the warp's 32 pixels: instances as M (two m-tiles), pixels as
-// K (eight k-steps), the 15 monomials as N (two n-tiles; column 15 is free
-// and carries the sum kept apart at the reduction): 32 mma per warp and
-// sub-batch. Each warp stores its C fragments in its slot, and after a
-// barrier the block's first 64 threads, 4 per instance, sum the columns
-// over the 8 slots and flush the sub-batch with one global atomicAdd per
-// non-zero (instance, row), the rows recombined once per instance (in
-// f64) from the moments, the mean's offset (xl, yl) from the tile centre,
-// the conic and the opacity: the centred moments M_mn = sum_p dop_g^2
-// dx^m dy^n (dx = xl - x, dy = yl - y; m + n in {2, 3, 4}) by the
-// binomial shift, first in x and then in y, each in Horner form, then e.g.
-// v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4. A pair
-// costs one shared store instead of 16 product rows and 80 warp shuffles;
-// an instance costs one global atomic per row and block instead of one per
-// row and warp.
+// Per warp sub-batch of SUB = 16 instances, mma.sync m16n8k8 TF32 takes
+// the sums over the warp's 32 pixels: instances as M, pixels as K, the 15
+// monomials as N (two n-tiles; column 15 is free and carries the sum kept
+// apart at the reduction). The warps' C fragments go to their slots, and
+// after a barrier thread (i, c) sums column c over the 8 slots; the same
+// threads flush the sub-batch with one global atomicAdd per non-zero
+// (instance, row), the rows recombined once per instance from the moments,
+// the mean's offset (xl, yl) from the tile centre, the conic and the
+// opacity: the centred moments M_mn = sum_p dop_g^2 dx^m dy^n
+// (dx = xl - x, dy = yl - y; m + n in {2, 3, 4}) by the binomial shift,
+// first in x and then in y, each in Horner form, then e.g.
+// v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4.
+// A pair costs one shared store instead of 16 product rows and 80 warp
+// shuffles; an instance costs one global atomic per row and block instead
+// of one per row and warp.
 //
-// Precision. The shift subtracts terms up to (7.5 + |xl|)^m times the
-// moments from each other, and a column can be a small difference of
-// such terms: on isotropic gaussians v0 v1 = op^2 a^2 M11, whose tile sums
-// cancel across the tiles a gaussian covers, so the column's largest
-// value is small against its per-tile terms. Moments held in f32 leave no
-// margin there: mma.sync TF32 with 3xTF32 passes (24 mma per sub-batch;
-// the degree-3 and degree-4 basis values need 12 and 16 significant bits,
-// TF32 keeps 11, so both operands split hi + lo) read <TF32 RESULT>
-// of a column's largest value on the golden scenes against FISHER_TOL =
-// 1e-4 (PERF.md, PR 10). In f64 the products are exact (dop^2 is an f32
-// value, the basis values are half-integer powers of at most 16
-// significant bits) and the sums and the shift keep ~2^-50 of their
-// terms, so the table differs from the plain version by the plain
-// version's own f32 rounding. f64 mma runs at about a seventh of the TF32 rate
-// (67 against 495 TFLOP/s), and a sub-batch needs 32 of them against
-// ~60 f32 operations per pair in the replay, most of which overlap.
+// Precision. TF32 keeps 11 significant bits, and the product of two TF32
+// values is exact in the f32 accumulator. The basis values of degree 0-2
+// (multiples of 0.25 up to 56.25) are exact in TF32; those of degree 3
+// and 4 are not (7.5^3 = 3375/8 needs 12 significant bits, 7.5^4 =
+// 50625/16 needs 16), so every basis value is split hi + lo, each part
+// exact in TF32 (lo is zero in degree 0-2), and dop^2 is split hi + lo
+// (lo carries it to within 2^-21). The passes: lo hi, hi lo and hi hi
+// (3xTF32; lo lo, ~2^-22 of a product, is dropped) on both n-tiles, since
+// each holds an inexact column (n-tile 0: columns 6 and 7, x^3 and x^2 y):
+// 4 k-steps x 2 n-tiles x 3 passes = 24 mma per warp and sub-batch. Each
+// moment then keeps ~2^-20 of its size. The recombination (in f32) keeps
+// that relative precision for a mean far off its tile, where the shift's
+// leading term dominates; for a narrow footprint inside the tile a row can
+// be (7.5 / sigma)^4 smaller than the shift's terms, but it is then small
+// against its column's largest value, and chip_smoke.py holds every column
+// to FISHER_TOL = 1e-4 of that value.
 // render/raster.py::fisher_rows_from_moments is the recombination in
 // tensor ops, which the CPU tests hold against the direct sums.
 //
@@ -81,39 +80,23 @@
 
 using namespace splat;
 
-constexpr int FROWS = 16;         // 15 moment rows + the sum of dop^2
-constexpr int FBUF = SUB * 32;    // floats per warp: (SUB, 32) dop_g^2
-constexpr int COL_APART = 15;     // the block's column of the sum apart
-constexpr int FLUSH_LANES = 4;    // lanes per instance at the flush
+constexpr int FROWS = 16;          // 15 moment rows + the sum of dop^2
+constexpr int FBUF = SUB * 32;     // floats per warp: (SUB, 32) dop_g^2
+constexpr int COL_APART = 15;      // the block's column of the sum apart
 // blocks per SM a launch keeps room for (registers capped at 80 a thread,
 // as B2's)
 constexpr int FISHER_BLOCKS = 3;
 
 // Layout of a block's dynamic shared memory, in floats: the staged rows,
 // the gids, each staged instance's gc, the batch's sum of dop^2 kept
-// apart, then (16-byte aligned) the warps' buffers. A warp's buffer, 2 KB,
-// doubles as its slot: its (SUB, 16) f64 sums.
+// apart, then (16-byte aligned) the warps' buffers, each of which doubles
+// as its warp's slot.
 __host__ __device__ inline int fisher_wbuf_offset(int chunk) {
   return (ROWS * chunk + 3 * chunk + 3) & ~3;
 }
 
 inline size_t fisher_smem_bytes(int chunk) {
   return (size_t)(fisher_wbuf_offset(chunk) + NWARP * FBUF) * sizeof(float);
-}
-
-// Where a warp's buffer keeps sub-batch instance jj of pixel lane l: row
-// jj, swizzled by xor 4 (jj % 8), so that the A fragments' loads (8 rows, 4
-// lanes each) and each instance's stores fall in distinct banks.
-__device__ __forceinline__ int fbuf_index(int jj, int l) {
-  return jj * 32 + (l ^ ((jj & 7) << 2));
-}
-
-// Where a slot keeps column c of row i: row i's 16 doubles swizzled by xor
-// 8 (i % 2) + 4 ((i / 2) % 2), so that the C fragments' 16-byte stores
-// (two rows of 64 bytes a quarter-warp) and the flush's loads (8 rows of
-// 32 bytes) fall in distinct banks. Even columns stay 16-byte aligned.
-__device__ __forceinline__ int slot_index(int i, int c) {
-  return i * 16 + (c ^ (((i & 1) << 3) | ((i & 2) << 1)));
 }
 
 // Monomial q of the basis, x^i y^k with q = d (d + 1) / 2 + k, d = i + k:
@@ -129,70 +112,57 @@ __device__ __forceinline__ float monomial(int q, float x, float y) {
   return v;
 }
 
-// A warp's B fragments, constant over a tile: for n-tile nt and k-step ks
-// (k-index t = lane % 4, column g = lane / 4) monomial 8 nt + g of pixel
-// lane 4 ks + t.
+// A warp's B fragments, constant over a tile: for n-tile nt, k-step k and
+// half h (k-index t + 4h, t = lane % 4, g = lane / 4) monomial 8 nt + g of
+// pixel lane 8k + t + 4h, split hi + lo.
 struct FisherB {
-  double b[2][8];
+  uint32_t hi[2][4][2], lo[2][4][2];
 };
 
 __device__ __forceinline__ void fisher_operands(FisherB& m) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = (threadIdx.x >> 5) * 2;  // tile row of the warp's pixel 0
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const int l = 4 * ks + t;
-    const float x = (float)(l & 15) - 7.5f;
-    const float y = (float)(row0 + (l >> 4)) - 7.5f;
+  for (int k = 0; k < 4; ++k) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) m.b[nt][ks] = monomial(8 * nt + g, x, y);
-  }
-}
-
-// d += a b: mma.sync m8n8k4, f64 operands and accumulator.
-__device__ __forceinline__ void mma_f64(double* d, double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
-}
-
-// The warp's sums over its 32 pixels of the sub-batch in its buffer:
-// c[mt][nt] is the C fragment of instances 8 mt + (0-7) and moment
-// columns 8 nt + (0-7); entry e is (row g, column 2t + e).
-__device__ __forceinline__ void fisher_sums(const float* buf,
-                                            const FisherB& m,
-                                            double (*c)[2][2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    for (int h = 0; h < 2; ++h) {
+      const int l = 8 * k + t + 4 * h;
+      const float x = (float)(l & 15) - 7.5f;
+      const float y = (float)(row0 + (l >> 4)) - 7.5f;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) c[mt][nt][0] = c[mt][nt][1] = 0.0;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const int col = (4 * ks + t) ^ (g << 2);
-    const double a0 = buf[g * 32 + col];        // instance g
-    const double a1 = buf[(g + 8) * 32 + col];  // instance g + 8
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      mma_f64(c[0][nt], a0, m.b[nt][ks]);
-      mma_f64(c[1][nt], a1, m.b[nt][ks]);
+      for (int nt = 0; nt < 2; ++nt)
+        split_tf32(monomial(8 * nt + g, x, y), m.hi[nt][k][h],
+                   m.lo[nt][k][h]);
     }
   }
 }
 
-// Store a warp's C fragments (zero for a warp to which no pixel
-// contributed) in its slot. Call once the warp's fragment loads are done
-// (__syncwarp()).
-__device__ __forceinline__ void fisher_put(double* slot,
-                                           const double (*c)[2][2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// The warp's sums over its 32 pixels of the sub-batch in its buffer: the C
+// fragments of the 16 moment columns (c0: n-tile 0, columns 0-7; c1:
+// n-tile 1, columns 8-15), rows the sub-batch's instances. The lo passes
+// run in their own accumulators (shorter dependency chains).
+__device__ __forceinline__ void fisher_sums(const float* buf,
+                                            const FisherB& m, float* c0,
+                                            float* c1) {
+  float x0[4], x1[4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 4; ++i) c0[i] = c1[i] = x0[i] = x1[i] = 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-      *reinterpret_cast<double2*>(slot + slot_index(8 * mt + g, 8 * nt + 2 * t)) =
-          make_double2(c[mt][nt][0], c[mt][nt][1]);
+  for (int k = 0; k < 4; ++k) {
+    uint32_t ah[4], al[4];
+    load_a(buf, k, ah, al);
+    mma_tf32(x0, al, m.hi[0][k]);
+    mma_tf32(x0, ah, m.lo[0][k]);
+    mma_tf32(c0, ah, m.hi[0][k]);
+    mma_tf32(x1, al, m.hi[1][k]);
+    mma_tf32(x1, ah, m.lo[1][k]);
+    mma_tf32(c1, ah, m.hi[1][k]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c0[i] += x0[i];
+    c1[i] += x1[i];
+  }
 }
 
 // One warp sub-batch: this pixel's pair_dpower for instances [jb, jb + SUB)
@@ -207,9 +177,9 @@ __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
                                                  float* buf, float* apart,
                                                  float& T, bool& dead,
                                                  float& accw) {
-  const int lane = threadIdx.x & 31;
+  const int col = wbuf_col(threadIdx.x & 31);
   bool any = false;
-#pragma unroll 8  // the buffer's row swizzle repeats every 8 rows
+#pragma unroll 4  // the buffer's row swizzle repeats every 4 rows
   for (int jj = 0; jj < SUB; ++jj) {
     const int j = jb + jj;
     float d2 = 0.0f;
@@ -224,111 +194,95 @@ __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
       T = pg.test;
       any = true;
     }
-    buf[fbuf_index(jj, lane)] = d2;
+    buf[wbuf_index(jj, col)] = d2;
   }
   return any;
 }
 
-// The 15 rows (a, b) of one instance, in f64, from its moments S (columns
+// Row r (0-14, (a, b) order) of one instance, from its moments S (columns
 // 0-14), the mean's offset (X, Y) from the tile centre, the conic (a, b, c)
 // and the opacity. render/raster.py::fisher_rows_from_moments is the same
 // arithmetic in tensor ops.
-__device__ __forceinline__ void fisher_rows(const double* S, double X,
-                                            double Y, double a, double b,
-                                            double c, double op,
-                                            double* rows) {
+__device__ __forceinline__ float fisher_row(int r, const float* S, float X,
+                                            float Y, float a, float b,
+                                            float c, float op) {
   // T_mk = sum_p dop_g^2 (X - x)^m y^k
-  const double T00 = S[0], T01 = S[2], T02 = S[5], T03 = S[9], T04 = S[14];
-  const double T10 = X * S[0] - S[1], T11 = X * S[2] - S[4];
-  const double T12 = X * S[5] - S[8], T13 = X * S[9] - S[13];
-  const double T20 = X * (X * S[0] - 2.0 * S[1]) + S[3];
-  const double T21 = X * (X * S[2] - 2.0 * S[4]) + S[7];
-  const double T22 = X * (X * S[5] - 2.0 * S[8]) + S[12];
-  const double T30 = X * (X * (X * S[0] - 3.0 * S[1]) + 3.0 * S[3]) - S[6];
-  const double T31 = X * (X * (X * S[2] - 3.0 * S[4]) + 3.0 * S[7]) - S[11];
-  const double T40 =
-      X * (X * (X * (X * S[0] - 4.0 * S[1]) + 6.0 * S[3]) - 4.0 * S[6]) +
+  const float T00 = S[0], T01 = S[2], T02 = S[5], T03 = S[9], T04 = S[14];
+  const float T10 = X * S[0] - S[1], T11 = X * S[2] - S[4];
+  const float T12 = X * S[5] - S[8], T13 = X * S[9] - S[13];
+  const float T20 = X * (X * S[0] - 2.0f * S[1]) + S[3];
+  const float T21 = X * (X * S[2] - 2.0f * S[4]) + S[7];
+  const float T22 = X * (X * S[5] - 2.0f * S[8]) + S[12];
+  const float T30 = X * (X * (X * S[0] - 3.0f * S[1]) + 3.0f * S[3]) - S[6];
+  const float T31 = X * (X * (X * S[2] - 3.0f * S[4]) + 3.0f * S[7]) - S[11];
+  const float T40 =
+      X * (X * (X * (X * S[0] - 4.0f * S[1]) + 6.0f * S[3]) - 4.0f * S[6]) +
       S[10];
   // M_mn = sum_p dop_g^2 (X - x)^m (Y - y)^n
-  const double M20 = T20, M11 = Y * T10 - T11;
-  const double M02 = Y * (Y * T00 - 2.0 * T01) + T02;
-  const double M30 = T30, M21 = Y * T20 - T21;
-  const double M12 = Y * (Y * T10 - 2.0 * T11) + T12;
-  const double M03 = Y * (Y * (Y * T00 - 3.0 * T01) + 3.0 * T02) - T03;
-  const double M40 = T40, M31 = Y * T30 - T31;
-  const double M22 = Y * (Y * T20 - 2.0 * T21) + T22;
-  const double M13 = Y * (Y * (Y * T10 - 3.0 * T11) + 3.0 * T12) - T13;
-  const double M04 =
-      Y * (Y * (Y * (Y * T00 - 4.0 * T01) + 6.0 * T02) - 4.0 * T03) + T04;
-  const double o2 = op * op;
-  rows[0] = o2 * (a * a * M20 + 2.0 * a * b * M11 + b * b * M02);
-  rows[1] = o2 * (a * b * M20 + (a * c + b * b) * M11 + b * c * M02);
-  rows[2] = o2 * 0.5 * (a * M30 + b * M21);
-  rows[3] = o2 * (a * M21 + b * M12);
-  rows[4] = o2 * 0.5 * (a * M12 + b * M03);
-  rows[5] = o2 * (b * b * M20 + 2.0 * b * c * M11 + c * c * M02);
-  rows[6] = o2 * 0.5 * (b * M30 + c * M21);
-  rows[7] = o2 * (b * M21 + c * M12);
-  rows[8] = o2 * 0.5 * (b * M12 + c * M03);
-  rows[9] = o2 * 0.25 * M40;
-  rows[10] = o2 * 0.5 * M31;
-  rows[11] = o2 * 0.25 * M22;
-  rows[12] = o2 * M22;
-  rows[13] = o2 * 0.5 * M13;
-  rows[14] = o2 * 0.25 * M04;
+  const float M20 = T20, M11 = Y * T10 - T11;
+  const float M02 = Y * (Y * T00 - 2.0f * T01) + T02;
+  const float M30 = T30, M21 = Y * T20 - T21;
+  const float M12 = Y * (Y * T10 - 2.0f * T11) + T12;
+  const float M03 = Y * (Y * (Y * T00 - 3.0f * T01) + 3.0f * T02) - T03;
+  const float M40 = T40, M31 = Y * T30 - T31;
+  const float M22 = Y * (Y * T20 - 2.0f * T21) + T22;
+  const float M13 = Y * (Y * (Y * T10 - 3.0f * T11) + 3.0f * T12) - T13;
+  const float M04 =
+      Y * (Y * (Y * (Y * T00 - 4.0f * T01) + 6.0f * T02) - 4.0f * T03) + T04;
+  const float rows[15] = {
+      a * a * M20 + 2.0f * a * b * M11 + b * b * M02,
+      a * b * M20 + (a * c + b * b) * M11 + b * c * M02,
+      0.5f * (a * M30 + b * M21),
+      a * M21 + b * M12,
+      0.5f * (a * M12 + b * M03),
+      b * b * M20 + 2.0f * b * c * M11 + c * c * M02,
+      0.5f * (b * M30 + c * M21),
+      b * M21 + c * M12,
+      0.5f * (b * M12 + c * M03),
+      0.25f * M40,
+      0.5f * M31,
+      0.25f * M22,
+      M22,
+      0.5f * M13,
+      0.25f * M04,
+  };
+  float out = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 15; ++q)
+    if (q == r) out = rows[q];
+  return out * (op * op);
 }
 
-// Flush a sub-batch into the (N, 16) table, on the block's first
-// SUB * FLUSH_LANES threads: thread (i, q) sums columns 4q .. 4q + 3 of
-// instance jb + i over the warps' slots (column 15: the sum kept apart),
-// gathers the instance's 16 columns from its 4 lanes, and adds rows
-// 4q .. 4q + 3 with one global atomicAdd each where not zero (row 15: the
-// sum of dop^2). Call after a __syncthreads() that follows every warp's
-// fisher_put.
+// Flush a sub-batch's column sums into the (N, 16) table: thread (i, r)
+// gets column r of instance jb + i summed over the warps' slots (column 15:
+// the sum kept apart), gathers the instance's 16 columns from its 16
+// lanes, and adds row r with one global atomicAdd if it is not zero. Every
+// lane of the warp must call it; call after a __syncthreads() that follows
+// every warp's part_put.
 __device__ __forceinline__ void fisher_flush(const float* s, const int* s_gid,
                                              const float* wbuf,
                                              const float* apart, int jb,
-                                             int n, int chunk, double cx,
-                                             double cy, float* mom) {
-  if (threadIdx.x >= SUB * FLUSH_LANES) return;  // warp-uniform
-  const int i = threadIdx.x / FLUSH_LANES, q = threadIdx.x % FLUSH_LANES;
-  const int lb = (threadIdx.x & 31) & ~(FLUSH_LANES - 1);
+                                             int n, int chunk, float cx,
+                                             float cy, float* mom) {
+  const int i = threadIdx.x >> 4, r = threadIdx.x & 15;
+  const int lb = threadIdx.x & 16;  // the instance's first lane
   const int j = jb + i;
-  const double* slots = reinterpret_cast<const double*>(wbuf);
-  double v[4];
+  float v = 0.0f;
+  if (j < n) v = r == COL_APART ? apart[j] : slot_sum(wbuf, i, r, FBUF);
+  float S[FROWS];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = 4 * q + k;
-    double sum = 0.0;
-    if (j < n && c == COL_APART) {
-      sum = apart[j];
-    } else if (j < n) {
-#pragma unroll
-      for (int w = 0; w < NWARP; ++w)
-        sum += slots[w * (FBUF / 2) + slot_index(i, c)];
-    }
-    v[k] = sum;
-  }
-  double S[FROWS];
-#pragma unroll
-  for (int c = 0; c < FROWS; ++c)
-    S[c] = __shfl_sync(0xffffffffu, v[c & 3], lb + (c >> 2));
+  for (int q = 0; q < FROWS; ++q) S[q] = __shfl_sync(0xffffffffu, v, lb + q);
   if (j >= n) return;
-  double rows[15];
-  fisher_rows(S, (double)s[ROW_X * chunk + j] - cx,
-              (double)s[ROW_Y * chunk + j] - cy, s[ROW_CA * chunk + j],
-              s[ROW_CB * chunk + j], s[ROW_CC * chunk + j],
-              s[ROW_OP * chunk + j], rows);
-  float* out = mom + (int64_t)s_gid[j] * FROWS;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    double o = S[0] + S[COL_APART];  // row 15
-#pragma unroll
-    for (int r = 0; r < 15; ++r)
-      if ((r & 3) == k && (r >> 2) == q) o = rows[r];
-    const float f = (float)o;
-    if (f != 0.0f) atomicAdd(out + 4 * q + k, f);
+  float out;
+  if (r == FROWS - 1) {
+    out = S[0] + S[COL_APART];
+  } else {
+    if (S[0] == 0.0f) return;  // no dop_g^2: every moment is zero
+    out = fisher_row(r, S, s[ROW_X * chunk + j] - cx, s[ROW_Y * chunk + j] - cy,
+                     s[ROW_CA * chunk + j], s[ROW_CB * chunk + j],
+                     s[ROW_CC * chunk + j], s[ROW_OP * chunk + j]);
   }
+  if (out != 0.0f) atomicAdd(mom + (int64_t)s_gid[j] * FROWS + r, out);
 }
 
 // One staged batch of n instances, flushed into the (N, 16) table
@@ -338,7 +292,7 @@ __device__ __forceinline__ void fisher_flush(const float* s, const int* s_gid,
 __device__ __forceinline__ void fisher_batch(const float* s, const int* s_gid,
                                              const float* gc, int n,
                                              int chunk, float px, float py,
-                                             double cx, double cy, float gtot,
+                                             float cx, float cy, float gtot,
                                              const FisherB& m, float* wbuf,
                                              float* apart, float& T,
                                              bool& dead, float& accw,
@@ -348,10 +302,10 @@ __device__ __forceinline__ void fisher_batch(const float* s, const int* s_gid,
     const bool any = fisher_sub_pairs(s, gc, jb, n, chunk, px, py, gtot, buf,
                                       apart, T, dead, accw);
     __syncwarp();
-    double c[2][2][2] = {};
-    if (__any_sync(0xffffffffu, any)) fisher_sums(buf, m, c);
+    float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (__any_sync(0xffffffffu, any)) fisher_sums(buf, m, c0, c1);
     __syncwarp();
-    fisher_put(reinterpret_cast<double*>(buf), c);
+    part_put(buf, c0, c1);
     __syncthreads();
     fisher_flush(s, s_gid, wbuf, apart, jb, n, chunk, cx, cy, mom);
     __syncthreads();  // the next sub-batch overwrites the buffers
@@ -396,8 +350,8 @@ raster_fisher_kernel(const float* __restrict__ attrs,
     __syncthreads();
     for (int j = p; j < n; j += NPIX) gc[j] = pair_gc(seed, s, j, chunk);
     __syncthreads();
-    fisher_batch(s, s_gid, gc, n, chunk, px, py, tx + 7.5, ty + 7.5, gtot, m,
-                 wbuf, apart, T, dead, accw, mom);
+    fisher_batch(s, s_gid, gc, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gtot,
+                 m, wbuf, apart, T, dead, accw, mom);
     if (__syncthreads_count(!dead) == 0) break;
   }
 }

@@ -617,10 +617,11 @@ def _ga_gdep(color, aux, g_color, g_aux):
 
 def _bwd_segments(attrs, sorted_gid, ranges, tiles, grid_x, chunk, g_color,
                   ga, gdep, nfeat, carry_depth, grad, trans, dead, accw):
-    """The analytic backward (raster_common.cuh's bwd_pair) of every
-    segment, from the state (T, dead, prefix of w * gc), with per-segment
-    constants ``g_color`` (S, 8, NPIX), ``ga``/``gdep`` (S, NPIX). Adds the
-    per-instance rows into ``grad`` in place; returns the end state."""
+    """The analytic backward (raster_common.cuh's pair_dpower and
+    bwd_batch) of every segment, from the state (T, dead, prefix of w * gc),
+    with per-segment constants ``g_color`` (S, 8, NPIX), ``ga``/``gdep``
+    (S, NPIX). Adds the per-instance rows into ``grad`` in place; returns
+    the end state."""
     dev = attrs.device
     px, py = _pixel_centers(tiles, grid_x)
     for rows, gid, valid in _blocks(attrs, sorted_gid, ranges, chunk):
