@@ -92,7 +92,25 @@ constexpr int FISHER_BLOCKS = 3;
 // apart, then (16-byte aligned) the warps' buffers, each of which doubles
 // as its warp's slot.
 __host__ __device__ inline int fisher_wbuf_offset(int chunk) {
-  return (ROWS * chunk + 3 * chunk + 3) & ~3;
+  return (ROWS * chunk + 4 * chunk + 3) & ~3;
+}
+
+// The alpha skip: a pair whose power lies below log(ALPHA_MIN / op) - its
+// margin has alpha 0 whatever expf's and logf's last bits, so it is
+// skipped before its exp (the per-instance bound is staged beside gc).
+constexpr float SKIP_MARGIN = 1e-3f;
+
+// The pair's power as eval_pair rounds it.
+__device__ __forceinline__ float pair_power(const float* s, int j, int chunk,
+                                            float px, float py) {
+  const float a = s[ROW_CA * chunk + j];
+  const float b = s[ROW_CB * chunk + j];
+  const float c = s[ROW_CC * chunk + j];
+  const float dx = __fsub_rn(s[ROW_X * chunk + j], px);
+  const float dy = __fsub_rn(s[ROW_Y * chunk + j], py);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
+                               __fmul_rn(__fmul_rn(c, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
 }
 
 inline size_t fisher_smem_bytes(int chunk) {
@@ -184,8 +202,10 @@ __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
     const int j = jb + jj;
     float d2 = 0.0f;
     PairGrad pg;
-    if (j < n && pair_dpower(s, j, chunk, px, py, StagedGc{gc}, gtot, T,
-                             dead, accw, pg)) {
+    if (j < n && !dead &&
+        !(pair_power(s, j, chunk, px, py) < gc[chunk + j]) &&
+        pair_dpower(s, j, chunk, px, py, StagedGc{gc}, gtot, T, dead, accw,
+                    pg)) {
       const float sq = __fmul_rn(pg.dop, pg.dop);
       if (pg.q.praw <= 0.0f)
         d2 = sq;
@@ -322,7 +342,7 @@ raster_fisher_kernel(const float* __restrict__ attrs,
   extern __shared__ float s[];  // rows, gids, gc, sums apart, buffers
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
   float* gc = s + ROWS * chunk + chunk;
-  float* apart = gc + chunk;
+  float* apart = gc + 2 * chunk;  // gc, then the skip bounds
   float* wbuf = s + fisher_wbuf_offset(chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -348,7 +368,10 @@ raster_fisher_kernel(const float* __restrict__ attrs,
     stage_batch(s, s_gid, attrs, sorted_gid, b, n, chunk);
     for (int j = p; j < n; j += NPIX) apart[j] = 0.0f;
     __syncthreads();
-    for (int j = p; j < n; j += NPIX) gc[j] = pair_gc(seed, s, j, chunk);
+    for (int j = p; j < n; j += NPIX) {
+      gc[j] = pair_gc(seed, s, j, chunk);
+      gc[chunk + j] = logf(ALPHA_MIN / s[ROW_OP * chunk + j]) - SKIP_MARGIN;
+    }
     __syncthreads();
     fisher_batch(s, s_gid, gc, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gtot,
                  m, wbuf, apart, T, dead, accw, mom);
