@@ -44,20 +44,27 @@ struct Pair {
   float alpha;    // min(raw, ALPHA_CAP), zeroed below ALPHA_MIN
 };
 
-// s: a staged batch in shared memory, row r of instance j at s[r * chunk + j]
-__device__ __forceinline__ Pair eval_pair(const float* s, int j, int chunk,
-                                          float px, float py) {
-  Pair q;
+// The power of the pair of a pixel and staged instance j before the clamp
+// at 0, and the mean's offsets dx, dy from the pixel centre. s: a staged
+// batch in shared memory, row r of instance j at s[r * chunk + j].
+__device__ __forceinline__ float pair_power(const float* s, int j, int chunk,
+                                            float px, float py, float& dx,
+                                            float& dy) {
   const float a = s[ROW_CA * chunk + j];
   const float b = s[ROW_CB * chunk + j];
   const float c = s[ROW_CC * chunk + j];
-  q.dx = __fsub_rn(s[ROW_X * chunk + j], px);
-  q.dy = __fsub_rn(s[ROW_Y * chunk + j], py);
+  dx = __fsub_rn(s[ROW_X * chunk + j], px);
+  dy = __fsub_rn(s[ROW_Y * chunk + j], py);
   // power = -0.5 * (a dx dx + c dy dy) - b dx dy, in this association
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, q.dx), q.dx),
-                               __fmul_rn(__fmul_rn(c, q.dy), q.dy));
-  q.praw = __fsub_rn(__fmul_rn(-0.5f, quad),
-                     __fmul_rn(__fmul_rn(b, q.dx), q.dy));
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
+                               __fmul_rn(__fmul_rn(c, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
+}
+
+__device__ __forceinline__ Pair eval_pair(const float* s, int j, int chunk,
+                                          float px, float py) {
+  Pair q;
+  q.praw = pair_power(s, j, chunk, px, py, q.dx, q.dy);
   q.epow = expf(fminf(q.praw, 0.0f));
   q.raw = __fmul_rn(s[ROW_OP * chunk + j], q.epow);
   const float al = fminf(ALPHA_CAP, q.raw);

@@ -33,9 +33,10 @@
 // conic, so each row is a fixed combination of the 15 pixel moments
 // S_ik = sum_p dop_g(p)^2 x^i y^k, i + k <= 4, in tile-centred pixel
 // coordinates (|x|, |y| <= 7.5; dop_g: dop where the power was not
-// clamped, zero elsewhere). gc is taken once per staged instance (the
-// seed is constant over the tile: the same rounded operations in the same
-// order as per pair). Each pixel's thread writes one value per pair into
+// clamped, zero elsewhere). Per staged instance the block takes gc once
+// (the seed is constant over the tile: the same rounded operations in the
+// same order as per pair) and the power below which its alpha is 0 (the
+// alpha skip below). Each pixel's thread writes one value per pair into
 // its warp's buffer, dop_g^2; dop^2 where the power was clamped (never,
 // for a positive-definite conic) goes into the batch's sum kept apart.
 // Per warp sub-batch of SUB = 16 instances, mma.sync m16n8k8 TF32 takes
@@ -52,7 +53,11 @@
 // v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4.
 // A pair costs one shared store instead of 16 product rows and 80 warp
 // shuffles; an instance costs one global atomic per row and block instead
-// of one per row and warp.
+// of one per row and warp. The alpha skip: a pair whose power lies below
+// log(1/255 / op) by more than SKIP_MARGIN has alpha 0 whatever the last
+// bits of expf and logf, so it is dropped before its exp; it would change
+// no T, no death and no sum (64% of the 200k scene's pairs lie below
+// 1/255).
 //
 // Precision. TF32 keeps 11 significant bits, and the product of two TF32
 // values is exact in the f32 accumulator. The basis values of degree 0-2
@@ -68,14 +73,22 @@
 // that relative precision for a mean far off its tile, where the shift's
 // leading term dominates; for a narrow footprint inside the tile a row can
 // be (7.5 / sigma)^4 smaller than the shift's terms, but it is then small
-// against its column's largest value, and chip_smoke.py holds every column
-// to FISHER_TOL = 1e-4 of that value.
-// render/raster.py::fisher_rows_from_moments is the recombination in
-// tensor ops, which the CPU tests hold against the direct sums.
+// against its column's largest value.
+// The tightest column is v0 v1 on isotropic gaussians (op^2 a^2 M11, whose
+// tile sums cancel across the tiles a gaussian covers): 3.2e-5 of its
+// largest value on the golden scenes sparse_iso and overlap_deep, 4e-6 on
+// dense_aniso, at most 1.4e-6 on chip_smoke.py's other scenes and the 200k
+// scene, against FISHER_TOL = 1e-4 (on tests/test_torch_fisher.py's
+// saturating scene JAX's kernel is itself 2.5e-5 of scale off a float64
+// evaluation). render/raster.py::fisher_rows_from_moments is the
+// recombination in tensor ops, which the CPU tests hold against the
+// direct sums.
 //
 // Bound on an H100: the replay's ~19 f32 operations per (pixel, instance)
 // pair plus the rest of the function's per-pair work (~66; chip_smoke.py's
-// FISHER_OPS), so compute-bound.
+// FISHER_OPS), so compute-bound: 0.1316 ms on the 200k scene at chunk 128,
+// where this kernel takes <B4 TIME> ms (the per-pair design 1.34; PERF.md,
+// PR 10), at 80 registers and 3 blocks per SM.
 #include "raster_common.cuh"
 
 using namespace splat;
@@ -88,34 +101,21 @@ constexpr int COL_APART = 15;      // the block's column of the sum apart
 constexpr int FISHER_BLOCKS = 3;
 
 // Layout of a block's dynamic shared memory, in floats: the staged rows,
-// the gids, each staged instance's gc, the batch's sum of dop^2 kept
-// apart, then (16-byte aligned) the warps' buffers, each of which doubles
-// as its warp's slot.
+// the gids, each staged instance's gc and power bound, the batch's sum of
+// dop^2 kept apart, then (16-byte aligned) the warps' buffers, each of
+// which doubles as its warp's slot.
 __host__ __device__ inline int fisher_wbuf_offset(int chunk) {
   return (ROWS * chunk + 4 * chunk + 3) & ~3;
-}
-
-// The alpha skip: a pair whose power lies below log(ALPHA_MIN / op) - its
-// margin has alpha 0 whatever expf's and logf's last bits, so it is
-// skipped before its exp (the per-instance bound is staged beside gc).
-constexpr float SKIP_MARGIN = 1e-3f;
-
-// The pair's power as eval_pair rounds it.
-__device__ __forceinline__ float pair_power(const float* s, int j, int chunk,
-                                            float px, float py) {
-  const float a = s[ROW_CA * chunk + j];
-  const float b = s[ROW_CB * chunk + j];
-  const float c = s[ROW_CC * chunk + j];
-  const float dx = __fsub_rn(s[ROW_X * chunk + j], px);
-  const float dy = __fsub_rn(s[ROW_Y * chunk + j], py);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                               __fmul_rn(__fmul_rn(c, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
 }
 
 inline size_t fisher_smem_bytes(int chunk) {
   return (size_t)(fisher_wbuf_offset(chunk) + NWARP * FBUF) * sizeof(float);
 }
+
+// The alpha skip's margin: where a pair's power lies below
+// log(ALPHA_MIN / op) - SKIP_MARGIN, op exp(power) < ALPHA_MIN whatever
+// the last bits of expf and logf (each within a few ulp), so alpha is 0.
+constexpr float SKIP_MARGIN = 1e-3f;
 
 // Monomial q of the basis, x^i y^k with q = d (d + 1) / 2 + k, d = i + k:
 // 1, x, y, x^2, xy, y^2, x^3, x^2 y, ..., y^4; zero for q = 15. Exact in
@@ -184,12 +184,14 @@ __device__ __forceinline__ void fisher_sums(const float* buf,
 }
 
 // One warp sub-batch: this pixel's pair_dpower for instances [jb, jb + SUB)
-// of the staged batch (of n), in order. Into the warp's buffer goes dop^2
+// of the staged batch (of n), in order, skipping the pairs whose power lies
+// below the instance's bound pmin. Into the warp's buffer goes dop^2
 // where the power was not clamped (zero where the pair adds nothing or
 // past n); into `apart` dop^2 where it was clamped. Advances T, dead and
 // accw; returns whether any pair contributed.
 __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
-                                                 const float* gc, int jb,
+                                                 const float* gc,
+                                                 const float* pmin, int jb,
                                                  int n, int chunk, float px,
                                                  float py, float gtot,
                                                  float* buf, float* apart,
@@ -202,8 +204,9 @@ __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
     const int j = jb + jj;
     float d2 = 0.0f;
     PairGrad pg;
+    float dx, dy;
     if (j < n && !dead &&
-        !(pair_power(s, j, chunk, px, py) < gc[chunk + j]) &&
+        !(pair_power(s, j, chunk, px, py, dx, dy) < pmin[j]) &&
         pair_dpower(s, j, chunk, px, py, StagedGc{gc}, gtot, T, dead, accw,
                     pg)) {
       const float sq = __fmul_rn(pg.dop, pg.dop);
@@ -306,11 +309,12 @@ __device__ __forceinline__ void fisher_flush(const float* s, const int* s_gid,
 }
 
 // One staged batch of n instances, flushed into the (N, 16) table
-// sub-batch by sub-batch. Call once the batch, its gc and its zeroed sums
-// apart are in shared memory and the block synchronised; every thread of
+// sub-batch by sub-batch. Call once the batch, its gc, its power bounds
+// and its zeroed sums apart are in shared memory and the block synchronised; every thread of
 // the block must call it (it synchronises the block twice per sub-batch).
 __device__ __forceinline__ void fisher_batch(const float* s, const int* s_gid,
-                                             const float* gc, int n,
+                                             const float* gc,
+                                             const float* pmin, int n,
                                              int chunk, float px, float py,
                                              float cx, float cy, float gtot,
                                              const FisherB& m, float* wbuf,
@@ -319,8 +323,8 @@ __device__ __forceinline__ void fisher_batch(const float* s, const int* s_gid,
                                              float* mom) {
   float* buf = wbuf + (threadIdx.x >> 5) * FBUF;
   for (int jb = 0; jb < n; jb += SUB) {  // block-uniform
-    const bool any = fisher_sub_pairs(s, gc, jb, n, chunk, px, py, gtot, buf,
-                                      apart, T, dead, accw);
+    const bool any = fisher_sub_pairs(s, gc, pmin, jb, n, chunk, px, py,
+                                      gtot, buf, apart, T, dead, accw);
     __syncwarp();
     float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (__any_sync(0xffffffffu, any)) fisher_sums(buf, m, c0, c1);
@@ -339,10 +343,11 @@ raster_fisher_kernel(const float* __restrict__ attrs,
                      const float* __restrict__ color,
                      const float* __restrict__ seed,
                      float* __restrict__ mom) {
-  extern __shared__ float s[];  // rows, gids, gc, sums apart, buffers
+  extern __shared__ float s[];  // rows, gids, gc, bounds, apart, buffers
   int* s_gid = reinterpret_cast<int*>(s + ROWS * chunk);
   float* gc = s + ROWS * chunk + chunk;
-  float* apart = gc + 2 * chunk;  // gc, then the skip bounds
+  float* pmin = gc + chunk;
+  float* apart = pmin + chunk;
   float* wbuf = s + fisher_wbuf_offset(chunk);
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -370,11 +375,11 @@ raster_fisher_kernel(const float* __restrict__ attrs,
     __syncthreads();
     for (int j = p; j < n; j += NPIX) {
       gc[j] = pair_gc(seed, s, j, chunk);
-      gc[chunk + j] = logf(ALPHA_MIN / s[ROW_OP * chunk + j]) - SKIP_MARGIN;
+      pmin[j] = logf(ALPHA_MIN / s[ROW_OP * chunk + j]) - SKIP_MARGIN;
     }
     __syncthreads();
-    fisher_batch(s, s_gid, gc, n, chunk, px, py, tx + 7.5f, ty + 7.5f, gtot,
-                 m, wbuf, apart, T, dead, accw, mom);
+    fisher_batch(s, s_gid, gc, pmin, n, chunk, px, py, tx + 7.5f, ty + 7.5f,
+                 gtot, m, wbuf, apart, T, dead, accw, mom);
     if (__syncthreads_count(!dead) == 0) break;
   }
 }
