@@ -9,20 +9,17 @@ launches, ``--rounds`` times. B4 is also held to its plain version there:
 the worst column's max abs error over that column's largest magnitude.
 For each kernel function the script prints its registers (ptxas), its
 mma instructions (HMMA, ``cuobjdump -sass``) and a digest of its
-SASS with addresses dropped (equal digests: the same instructions), and
-B4's registers and blocks per SM where its library exports
-``raster_fisher_occupancy``. The last line is one JSON object.
+SASS with addresses dropped (equal digests: the same instructions). The
+last line is one JSON object.
 
 Usage: python -m splatam_torch.bench.kernel_ab [--iters 20] [--rounds 3]
 (on the card only). It needs no more of the package than the kernels'
 wrappers, so a copy of this file in another checkout's
-``splatam_torch/bench/`` times that checkout (older ones have no
-``CudaKernel.occupancy``: ``fisher_occupancy`` reads the entry itself).
+``splatam_torch/bench/`` times that checkout.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import json
 import re
@@ -90,22 +87,6 @@ def registers(logs: dict) -> dict:
     return regs
 
 
-def fisher_occupancy():
-    """(registers, blocks per SM) of B4 at CHUNK, or None where its library
-    has no occupancy entry."""
-    lib = ctypes.CDLL(str(raster._library_path("raster_fisher")))
-    fn = getattr(lib, "raster_fisher_occupancy", None)
-    if fn is None:
-        return None
-    ptr = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.c_int, ptr, ptr]
-    r, b = ctypes.c_int(), ctypes.c_int()
-    rc = fn(CHUNK, ctypes.byref(r), ctypes.byref(b))
-    if rc != 0:
-        raise RuntimeError(f"raster_fisher_occupancy: CUDA error {rc}")
-    return r.value, b.value
-
-
 def inputs(n, w, h):
     """The four kernels' launches on [timing]'s streams, as closures, and
     B4's plain version."""
@@ -166,16 +147,14 @@ def main(argv=None):
     for _ in range(a.rounds):
         for k, fn in runs.items():
             ms[k].append(time_ms(fn, a.iters, dev))
-    occ = fisher_occupancy()
     print(f"[kernel_ab] {device_name(dev)} ({raster.__file__})", flush=True)
     for k in runs:
         print(f"[kernel_ab] {k}: " + " / ".join(f"{v:.4f}" for v in ms[k])
               + f" ms; {facts[k]}", flush=True)
     print(f"[kernel_ab] B4 worst column err/scale against its plain version "
-          f"{b4_rel:.3g}; registers, blocks per SM at chunk {CHUNK}: {occ}",
-          flush=True)
+          f"{b4_rel:.3g}", flush=True)
     print(json.dumps(dict(device=device_name(dev), ms=ms, facts=facts,
-                          b4_err_scale=b4_rel, b4_occupancy=occ)), flush=True)
+                          b4_err_scale=b4_rel)), flush=True)
 
 
 if __name__ == "__main__":

@@ -200,8 +200,9 @@ __device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
 // the pixel sums of each instance's gradient rows on the tensor cores, in
 // the TPU kernel's moment form (`_bwd_chunk_body`, pallas_raster.py:903-952),
 // and a block-level reduction of them. B4 (raster_fisher.cu) runs its own
-// batch on the same pieces: pair_dpower, the buffers' layout (wbuf_col,
-// wbuf_index), split_tf32, mma_tf32, load_a, part_put and slot_sum.
+// batch on the same pieces: pair_power, pair_dpower, the buffers' layout
+// (wbuf_col, wbuf_index), split_tf32, mma_tf32, load_a, part_put and
+// slot_sum.
 //
 // Every pixel's thread walks the staged batch in order (pair_dpower: the
 // transmittance replay is sequential per pixel) and writes, for each
@@ -246,8 +247,8 @@ __device__ __forceinline__ bool pair_dpower(const float* s, int j, int chunk,
 // ---------------------------------------------------------------------------
 
 constexpr int NWARP = NPIX / 32;
-// blocks per SM a B2/B3c/B3d launch keeps room for (registers capped at 80 a
-// thread; shared memory allows 3 up to chunk 256)
+// blocks per SM a B2/B3c/B3d/B4 launch keeps room for (registers capped at
+// 80 a thread; shared memory allows 3 up to chunk 256)
 constexpr int BWD_BLOCKS = 3;
 constexpr int SUB = 16;             // instances per warp sub-batch: mma's M
 constexpr int WBUF = 2 * SUB * 32;  // floats per warp: dop, then w

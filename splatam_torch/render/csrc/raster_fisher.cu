@@ -96,9 +96,6 @@ using namespace splat;
 constexpr int FROWS = 16;          // 15 moment rows + the sum of dop^2
 constexpr int FBUF = SUB * 32;     // floats per warp: (SUB, 32) dop_g^2
 constexpr int COL_APART = 15;      // the block's column of the sum apart
-// blocks per SM a launch keeps room for (registers capped at 80 a thread,
-// as B2's)
-constexpr int FISHER_BLOCKS = 3;
 
 // Layout of a block's dynamic shared memory, in floats: the staged rows,
 // the gids, each staged instance's gc and power bound, the batch's sum of
@@ -336,7 +333,7 @@ __device__ __forceinline__ void fisher_batch(const float* s, const int* s_gid,
   }
 }
 
-__global__ void __launch_bounds__(NPIX, FISHER_BLOCKS)
+__global__ void __launch_bounds__(NPIX, BWD_BLOCKS)
 raster_fisher_kernel(const float* __restrict__ attrs,
                      const int* __restrict__ sorted_gid,
                      const int* __restrict__ ranges, int grid_x, int chunk,
