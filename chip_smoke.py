@@ -34,7 +34,8 @@ Phases, each of which must pass:
    ``render_fisher`` on the card against the plain path on the CPU on a
    golden scene, within 1e-4 of the Fisher's largest magnitude.
 3. Time every kernel on the 200k scene (CUDA events after warm-up) beside
-   its plain version and its bound, and time one SLAM mapping iteration
+   its plain version and its bound (B4 with its registers and blocks per
+   SM from the CUDA runtime), and time one SLAM mapping iteration
    (``map_step``: forward + backward + Adam at chunk 128, binning frozen
    for 10 iterations) in each layout.
 4. ``[bench]``: B1-B3d at chunk 256 on the benchmark's own trimmed streams
