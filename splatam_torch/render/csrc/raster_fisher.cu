@@ -87,8 +87,8 @@
 // Bound on an H100: the replay's ~19 f32 operations per (pixel, instance)
 // pair plus the rest of the function's per-pair work (~66; chip_smoke.py's
 // FISHER_OPS), so compute-bound: 0.1316 ms on the 200k scene at chunk 128,
-// where this kernel takes <B4 TIME> ms (the per-pair design 1.34; PERF.md,
-// PR 10), at 80 registers and 3 blocks per SM.
+// where this kernel takes 0.73 ms (the per-pair design 1.34; PERF.md,
+// PR 10), at 79 registers and 3 blocks per SM.
 #include "raster_common.cuh"
 
 using namespace splat;

@@ -241,6 +241,35 @@ def test_fisher_rows_from_moments_match_the_direct_sums():
     assert np.all(err32 <= FISHER_TOL * scale), err32 / scale
 
 
+def test_fisher_alpha_skip_drops_only_pairs_with_alpha_zero():
+    """B4 drops a pair before its exp where its power lies below
+    log(1/255 / op) - SKIP_MARGIN (raster_fisher.cu). On chip_smoke's
+    threshold scene (op exp(power) within 2% of 1/255 at ~12,000 pairs)
+    every pair that bound drops has alpha 0 as the plain version computes
+    it, some pairs lie within the margin above the bound, and most pairs
+    are dropped."""
+    from chip_smoke import scene_setup, small_scene
+
+    margin = 1e-3  # raster_fisher.cu's SKIP_MARGIN
+    s = scene_setup(small_scene("threshold"), torch.device("cpu"))
+    px, py = raster._pixel_centers(torch.arange(s.binned.ranges.shape[0]),
+                                   s.grid_x)
+    pairs = dropped = wrong = near = 0
+    for rows, _, valid in raster._blocks(s.attrs, s.binned.sorted_gid,
+                                         s.binned.ranges, s.chunk):
+        praw, alpha = (raster._pairs(rows, px, py)[i] for i in (2, 5))
+        pmin = (torch.log(raster.ALPHA_MIN / rows[..., raster.ROW_OP])
+                - margin)[..., None]
+        v = valid[..., None].expand_as(praw)
+        drop = v & (praw < pmin)
+        pairs += int(v.sum())
+        dropped += int(drop.sum())
+        wrong += int((drop & (alpha > 0)).sum())
+        near += int((v & (praw >= pmin) & (praw < pmin + 2 * margin)).sum())
+    assert wrong == 0
+    assert near > 0 and dropped > pairs // 2
+
+
 def test_fisher_moments_needs_aligned_binning():
     means, _, opac, scales, quats = (torch.as_tensor(x) for x in _scene_a())
     attrs, _, cam = _port_setup(_scene_a())
