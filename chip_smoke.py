@@ -124,6 +124,7 @@ HBM_BYTES_S = 3.35e12
 # table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
 BF16X2_PEAK_FLOPS = 133.8e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12  # the dense TF32 tensor-core rate (data sheet)
 SFU_OPS_S = 16 * 132 * 1.98e9
 MAP_FEATS = 6  # the mapping loss's fused channels: RGB, depth, silhouette, depth^2
 # f32 operations per (pixel, instance) pair that the kernels' function
@@ -135,10 +136,16 @@ MAP_FEATS = 6  # the mapping loss's fused channels: RGB, depth, silhouette, dept
 # of each gradient row (7 + 1 per channel).
 FWD_OPS = (22, 2)  # (constant, per feature channel)
 BWD_OPS = (56, 4)
-# B4 per pair: the replay (19), gc over the 3 seeded channels (6), the
-# suffix, dalpha, d/dopacity and dpower (12), the five screen rows (16),
-# the 16 moment products and their 16 per-pixel sums
-FISHER_OPS = 19 + 6 + 12 + 16 + 16 + 16
+# B4's function at its least, in its moment form (the rows are op^2 times
+# fixed combinations of the pixel moments of dop^2, so the per-pair rows,
+# products and their sums are not needed): per evaluated pair the replay
+# (19), the suffix, dalpha and d/dopacity (11) and its square (1) in f32,
+# and the 15 moments' multiply-adds (30 flops) on the tensor cores at the
+# TF32 rate; per instance gc over the 3 seeded channels (6). The per
+# instance recombination of the rows is not counted.
+FISHER_OPS = 19 + 11 + 1
+FISHER_TC_FLOPS = 2 * 15
+FISHER_INSTANCE_OPS = 6
 FISHER_SEED = 1e-3  # on RGB (fisher.py:148 of the JAX package)
 FISHER_TOL = 1e-4  # per moment column, of its largest magnitude
 
@@ -794,12 +801,13 @@ def phase_kernels(dev, bench_size=(200_000, 1200, 680)):
     return errs, (bench, outs), (bench_split, outs_split)
 
 
-def bound_ms(nbytes, ops, tc_flops=0.0):
+def bound_ms(nbytes, ops, tc_flops=0.0, tc_peak=BF16_TC_FLOPS):
     """The least time on this card (ms) for moving ``nbytes``, doing ``ops``
-    f32 operations and ``tc_flops`` on the tensor cores (the units
-    overlapping perfectly), and which bounds it: bytes or operations."""
+    f32 operations and ``tc_flops`` on the tensor cores at ``tc_peak`` (the
+    units overlapping perfectly), and which bounds it: bytes or
+    operations."""
     tb = nbytes / HBM_BYTES_S
-    to = max(ops / F32_PEAK_FLOPS, tc_flops / BF16_TC_FLOPS)
+    to = max(ops / F32_PEAK_FLOPS, tc_flops / tc_peak)
     return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
 
 
@@ -819,10 +827,13 @@ def kernel_bounds(s: Setup, evaluated, nfeat_bwd):
 def fisher_bound(s: Setup, evaluated):
     """B4's least time in ms on this card for this run's inputs: the
     attribute table, stream, ranges, color blocks and seed read once, the
-    (N, 16) moments written once; FISHER_OPS per evaluated pair."""
+    (N, 16) moments written once; FISHER_OPS and FISHER_TC_FLOPS per
+    evaluated pair, FISHER_INSTANCE_OPS per instance."""
     n, t, k = s.attrs.shape[0], s.binned.ranges.shape[0], s.binned.num_instances
     nbytes = n * 16 * 4 + k * 4 + t * 2 * 4 + t * 8 * 256 * 4 + 8 * 4 + n * 16 * 4
-    return bound_ms(nbytes, int(evaluated.sum()) * FISHER_OPS)
+    pairs = int(evaluated.sum())
+    return bound_ms(nbytes, pairs * FISHER_OPS + k * FISHER_INSTANCE_OPS,
+                    pairs * FISHER_TC_FLOPS, TF32_TC_FLOPS)
 
 
 def split_bounds(s: Setup, ev_i, ev_t, nfeat_bwd):

@@ -836,8 +836,9 @@ def fisher_moments_plain(attrs, sorted_gid, ranges, grid_x, chunk, color,
 
 
 def fisher_rows_from_moments(s, xl, yl, ca, cb, cc, op):
-    """B4's flush (``csrc/raster_fisher.cu::fisher_rows``) in tensor ops:
-    one instance's (..., FISHER_ROWS) rows from the block's 16 columns
+    """B4's flush (``csrc/raster_fisher.cu``'s ``fisher_row`` and
+    ``fisher_flush``, which change with it) in tensor ops: one instance's
+    (..., FISHER_ROWS) rows from the block's 16 columns
     ``s`` (..., 16): 0-14 the pixel moments sum_p dop_g^2 x^i y^k
     (i + k <= 4, ordered by degree, then by falling i; x, y the pixel's
     offset from the tile centre; dop_g d/dopacity where the power was not

@@ -241,17 +241,27 @@ def test_fisher_rows_from_moments_match_the_direct_sums():
     assert np.all(err32 <= FISHER_TOL * scale), err32 / scale
 
 
-def test_fisher_alpha_skip_drops_only_pairs_with_alpha_zero():
-    """B4 drops a pair before its exp where its power lies below
-    log(1/255 / op) - SKIP_MARGIN (raster_fisher.cu). On chip_smoke's
-    threshold scene (op exp(power) within 2% of 1/255 at ~12,000 pairs)
-    every pair that bound drops has alpha 0 as the plain version computes
-    it, some pairs lie within the margin above the bound, and most pairs
-    are dropped."""
+def _skip_margin():
+    """raster_fisher.cu's SKIP_MARGIN, read from the kernel's source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(raster.__file__).parent / "csrc" / "raster_fisher.cu").read_text()
+    m = re.search(r"constexpr float SKIP_MARGIN = ([0-9.eE+-]+)f;", src)
+    assert m, "raster_fisher.cu no longer defines SKIP_MARGIN"
+    return float(m.group(1))
+
+
+def _skip_counts(kind):
+    """On chip_smoke's scene ``kind`` at chunk 128: the valid (pixel,
+    instance) pairs, those B4's alpha skip drops (power below log(1/255 /
+    op) - SKIP_MARGIN), those of them whose alpha is not 0 as the plain
+    version computes it, and those within twice the margin above the
+    bound."""
     from chip_smoke import scene_setup, small_scene
 
-    margin = 1e-3  # raster_fisher.cu's SKIP_MARGIN
-    s = scene_setup(small_scene("threshold"), torch.device("cpu"))
+    margin = _skip_margin()
+    s = scene_setup(small_scene(kind), torch.device("cpu"))
     px, py = raster._pixel_centers(torch.arange(s.binned.ranges.shape[0]),
                                    s.grid_x)
     pairs = dropped = wrong = near = 0
@@ -266,8 +276,29 @@ def test_fisher_alpha_skip_drops_only_pairs_with_alpha_zero():
         dropped += int(drop.sum())
         wrong += int((drop & (alpha > 0)).sum())
         near += int((v & (praw >= pmin) & (praw < pmin + 2 * margin)).sum())
+    return pairs, dropped, wrong, near
+
+
+def test_fisher_alpha_skip_drops_only_pairs_with_alpha_zero():
+    """B4 drops a pair before its exp where its power lies below
+    log(1/255 / op) - SKIP_MARGIN (raster_fisher.cu). On chip_smoke's
+    threshold scene (op exp(power) within 2% of 1/255 at ~12,000 pairs)
+    every pair that bound drops has alpha 0 as the plain version computes
+    it, some pairs lie within the margin above the bound, and most pairs
+    are dropped."""
+    pairs, dropped, wrong, near = _skip_counts("threshold")
     assert wrong == 0
     assert near > 0 and dropped > pairs // 2
+
+
+@pytest.mark.parametrize("kind", ["far_contention", "saturating"])
+def test_fisher_alpha_skip_keeps_every_pair_with_alpha(kind):
+    """The same rule on chip_smoke's opaque scenes (op 0.3-0.95, means far
+    off their tiles, saturated tiles): every pair the skip drops has alpha
+    0, and it drops some."""
+    pairs, dropped, wrong, _ = _skip_counts(kind)
+    assert wrong == 0
+    assert 0 < dropped < pairs
 
 
 def test_fisher_moments_needs_aligned_binning():
