@@ -50,9 +50,11 @@
 // opacity: the centred moments M_mn = sum_p dop_g^2 dx^m dy^n
 // (dx = xl - x, dy = yl - y; m + n in {2, 3, 4}) by the binomial shift,
 // first in x and then in y, each in Horner form, then e.g.
-// v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4; each
-// lane evaluates only its own row's terms (a switch over the rows, whose
-// 15 paths a warp runs one after another, measured 6% slower).
+// v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4. Each
+// of an instance's 16 lanes evaluates all 15 rows side by side and keeps
+// its own: a switch over the rows, whose 15 paths a warp runs one after
+// another, measured 6% slower, and a row from per-lane moments and
+// coefficients spilled at the 80-register cap.
 // A pair costs one shared store instead of 16 product rows and 80 warp
 // shuffles; an instance costs one global atomic per row and block instead
 // of one per row and warp. The alpha skip: a pair whose power lies below
@@ -93,7 +95,7 @@
 // TF32 rate and gc per instance: compute-bound, 0.048 ms on the 200k
 // scene at chunk 128 (0.1316 ms under the per-pair design's count of 85
 // operations per pair). This kernel takes 0.72 ms there (the per-pair
-// design 1.34; PERF.md) at 80 registers and 3 blocks per SM.
+// design 1.34; PERF.md) at 79 registers and 3 blocks per SM.
 #include "raster_common.cuh"
 
 using namespace splat;
@@ -224,18 +226,14 @@ __device__ __forceinline__ bool fisher_sub_pairs(const float* s,
   return any;
 }
 
-// Row r (0-14, (a, b) order) of one instance over op^2, from its moments S
-// (columns 0-14), the mean's offset (X, Y) from the tile centre and the
-// conic (a, b, c). Row r is v_i v_j, (i, j) the r-th pair of the upper
-// triangle, with v_0 ~ a dx + b dy, v_1 ~ b dx + c dy and v_2, v_3, v_4 ~
-// dx^2 / 2, dx dy, dy^2 / 2 (the signs cancel in a product): a sum of at
-// most three centred moments. Every lane takes the centred moments, then
-// picks its own row's moments and coefficients.
-// render/raster.py::fisher_rows_from_moments is the same algebra in tensor
-// ops, and changes with it.
+// Row r (0-14, (a, b) order) of one instance, from its moments S (columns
+// 0-14), the mean's offset (X, Y) from the tile centre, the conic (a, b, c)
+// and the opacity. Every lane evaluates the instance's 15 rows, which stay
+// in registers, and keeps its own. render/raster.py::fisher_rows_from_moments
+// is the same arithmetic in tensor ops, and changes with it.
 __device__ __forceinline__ float fisher_row(int r, const float* S, float X,
                                             float Y, float a, float b,
-                                            float c) {
+                                            float c, float op) {
   // T_mk = sum_p dop_g^2 (X - x)^m y^k
   const float T00 = S[0], T01 = S[2], T02 = S[5], T03 = S[9], T04 = S[14];
   const float T10 = X * S[0] - S[1], T11 = X * S[2] - S[4];
@@ -259,21 +257,28 @@ __device__ __forceinline__ float fisher_row(int r, const float* S, float X,
   const float M13 = Y * (Y * (Y * T10 - 3.0f * T11) + 3.0f * T12) - T13;
   const float M04 =
       Y * (Y * (Y * (Y * T00 - 4.0f * T01) + 6.0f * T02) - 4.0f * T03) + T04;
-  if (r >= 9) {  // i, j >= 2: one moment of degree 4
-    const float m = r == 9 ? M40 : r == 10 ? M31 : r == 13 ? M13
-                  : r == 14 ? M04 : M22;
-    return (r == 12 ? 1.0f : r == 10 || r == 13 ? 0.5f : 0.25f) * m;
-  }
-  const bool one = r >= 5;  // i = 1 (rows 5-8), else i = 0
-  const float p0 = one ? b : a, p1 = one ? c : b;
-  if (r == 0 || r == 1 || r == 5) {  // j <= 1: degree 2
-    const float q0 = r == 0 ? a : b, q1 = r == 0 ? b : c;
-    return p0 * q0 * M20 + (p0 * q1 + p1 * q0) * M11 + p1 * q1 * M02;
-  }
-  const int k = r - (one ? 6 : 2);  // j = k + 2: degree 3
-  const float m0 = k == 0 ? M30 : k == 1 ? M21 : M12;
-  const float m1 = k == 0 ? M21 : k == 1 ? M12 : M03;
-  return (k == 1 ? 1.0f : 0.5f) * (p0 * m0 + p1 * m1);
+  const float rows[15] = {
+      a * a * M20 + 2.0f * a * b * M11 + b * b * M02,
+      a * b * M20 + (a * c + b * b) * M11 + b * c * M02,
+      0.5f * (a * M30 + b * M21),
+      a * M21 + b * M12,
+      0.5f * (a * M12 + b * M03),
+      b * b * M20 + 2.0f * b * c * M11 + c * c * M02,
+      0.5f * (b * M30 + c * M21),
+      b * M21 + c * M12,
+      0.5f * (b * M12 + c * M03),
+      0.25f * M40,
+      0.5f * M31,
+      0.25f * M22,
+      M22,
+      0.5f * M13,
+      0.25f * M04,
+  };
+  float out = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 15; ++q)
+    if (q == r) out = rows[q];
+  return out * (op * op);
 }
 
 // Flush a sub-batch's column sums into the (N, 16) table: thread (i, r)
@@ -301,10 +306,9 @@ __device__ __forceinline__ void fisher_flush(const float* s, const int* s_gid,
     out = S[0] + S[COL_APART];
   } else {
     if (S[0] == 0.0f) return;  // no dop_g^2: every moment is zero
-    const float op = s[ROW_OP * chunk + j];
     out = fisher_row(r, S, s[ROW_X * chunk + j] - cx, s[ROW_Y * chunk + j] - cy,
                      s[ROW_CA * chunk + j], s[ROW_CB * chunk + j],
-                     s[ROW_CC * chunk + j]) * (op * op);
+                     s[ROW_CC * chunk + j], s[ROW_OP * chunk + j]);
   }
   if (out != 0.0f) atomicAdd(mom + (int64_t)s_gid[j] * FROWS + r, out);
 }
