@@ -53,7 +53,7 @@
 // v0 v0 = op^2 (a^2 M20 + 2ab M11 + b^2 M02), v2 v2 = op^2 M40 / 4. Each
 // of an instance's 16 lanes evaluates all 15 rows side by side and keeps
 // its own: a switch over the rows, whose 15 paths a warp runs one after
-// another, measured 6% slower, and a row from per-lane moments and
+// another, measured 5.5% slower, and a row from per-lane moments and
 // coefficients spilled at the 80-register cap.
 // A pair costs one shared store instead of 16 product rows and 80 warp
 // shuffles; an instance costs one global atomic per row and block instead
