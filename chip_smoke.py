@@ -84,6 +84,25 @@ Phases, each of which must pass:
    < 0.03 m, and every call site's launches must be exact: B3a-d for
    tracking, densification and mapping (the config's split layout), B1
    for the dataset's renders, B1 + B4 per H_train pose and per candidate.
+   Then ``fisher_gains_batch`` on the final map and 8 candidates through
+   the kernels and through their plain versions on the card: the largest
+   relative difference of the silhouette gain and of EIG is printed, and
+   the candidates' order by gain must not change.
+10. ``[slam_cli]``: the SLAM CLI (``splatam_torch.run.slam.main``) on
+   sequences written to disk from the synthetic scene: a ``[data]`` line
+   first (which of imageio, PIL, cv2 and yaml import, whether the native
+   decoder builds, the decoder the loaders use); then Replica's format
+   (JPEG color, 16-bit PNG depth at 6553.5, traj.txt) at 1200x680 with
+   ``configs/replica/splatam.py`` and ``splatam_s.py`` (its 600x340
+   densification and fixed binning), and TUM's (PNG color, depth at 5000,
+   rgb/depth/groundtruth lists, crop_edge 8) at 640x480 with
+   ``configs/tum/splatam.py`` (its depth-loss threshold), each as shipped
+   but for the printed cuts (the data paths, the workdir, 8 frames); the
+   files are written with Pillow, and the phase fails where neither
+   imageio nor Pillow imports. Each run's params.npz, splat.ply and eval/psnr.txt must
+   exist, ATE and PSNR be finite, its launches match its renders and the
+   evaluation's its frames. The Replica run saves a checkpoint at frame 4
+   and one more run resumes from it.
 
 The last lines are a JSON line of per-kernel numbers (all eleven kernels;
 P1's also carries its per-stage ms) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -94,6 +113,7 @@ Usage: python3 chip_smoke.py [--frames N]  (SLAM frames, default 60)
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -1389,6 +1409,7 @@ def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
         f"{result['ms_per_h_train']:.1f} ms per H_train recompute "
         f"({result['ms_per_h_train_pose']:.2f} ms per pose, {poses} poses); "
         f"ATE {ate:.5f} m, {n} gaussians")
+    check_gains_plain(handler, state, gain_candidates(ds.poses[frames - 1]))
     if dev.type == "cuda":
         def block():
             handler.compute_gains(state.params, None,
@@ -1400,6 +1421,52 @@ def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
         profile_block(block, 1)
     torch.cuda.empty_cache()
     return result, launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, B1's and B4's wrappers run their plain versions on
+    the tensors they are given (on the card too) and count nothing."""
+    from splatam_torch.render import raster
+
+    saved = raster.raster_fwd_cuda, raster.fisher_moments_cuda
+    raster.raster_fwd_cuda = (
+        lambda *a, **k: raster.raster_fwd_plain(*a, **k)[:2])
+    raster.fisher_moments_cuda = raster.fisher_moments_plain
+    try:
+        yield
+    finally:
+        raster.raster_fwd_cuda, raster.fisher_moments_cuda = saved
+
+
+def check_gains_plain(handler, state, candidates):
+    """``fisher_gains_batch`` through the kernels (B1 + B4, B4's moments in
+    3xTF32) and through their plain versions, on the same map and
+    candidates: the largest relative difference of the silhouette gain and
+    of EIG, and the candidates' order by gain, which must not change."""
+    import torch
+
+    got = handler.compute_gains(state.params, None, candidates)
+    torch.cuda.synchronize()
+    with plain_kernels():
+        ref = handler.compute_gains(state.params, None, candidates)
+
+    def rel(key):
+        return max(abs(g[key] - r[key]) / max(abs(r[key]), 1e-30)
+                   for g, r in zip(got, ref))
+
+    order = [np.argsort([-g["gain"] for g in gains], kind="stable").tolist()
+             for gains in (got, ref)]
+    log(f"[realtime] gains on the final map, kernels vs plain versions "
+        f"({len(candidates)} candidates): largest relative difference sil "
+        f"{rel('sil'):.3g}, EIG {rel('eig'):.3g}; order by gain "
+        f"{'unchanged' if order[0] == order[1] else 'CHANGED'} (kernels "
+        f"{order[0]}, plain {order[1]}); EIG kernels "
+        + " ".join(f"{g['eig']:.6g}" for g in got) + ", plain "
+        + " ".join(f"{r['eig']:.6g}" for r in ref))
+    if order[0] != order[1]:
+        fail(f"realtime: B4's moments change the candidates' order by gain: "
+             f"{order[0]} against the plain versions' {order[1]}")
 
 
 BENCH_ITERS = 10  # bench.py's chained iterations, binning frozen for all 10
@@ -1661,6 +1728,289 @@ def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
     return entries, launches
 
 
+# ---------------------------------------------------------------------------
+# [slam_cli]: the SLAM CLI on sequences written to disk
+# ---------------------------------------------------------------------------
+
+CLI_FRAMES = 8
+
+
+def write_png(path, img):
+    """A PNG of (H, W, 3) uint8 or (H, W) uint16, with Pillow."""
+    from PIL import Image
+
+    Image.fromarray(img).save(path)
+
+
+def write_jpeg(path, rgb):
+    """A JPEG of (H, W, 3) uint8 at quality 95, 4:4:4, with Pillow."""
+    from PIL import Image
+
+    Image.fromarray(rgb).save(path, quality=95, subsampling=0)
+
+
+def _yaml(path, name, k, w, h, depth_scale, crop_edge):
+    with open(path, "w") as f:
+        f.write(f"dataset_name: '{name}'\ncamera_params:\n"
+                f"  image_height: {h}\n  image_width: {w}\n"
+                f"  fx: {k[0][0]}\n  fy: {k[1][1]}\n  cx: {k[0][2]}\n"
+                f"  cy: {k[1][2]}\n  crop_edge: {crop_edge}\n"
+                f"  png_depth_scale: {depth_scale}\n")
+
+
+def write_replica(root, dev, frames=CLI_FRAMES, size=(1200, 680)):
+    """The synthetic sequence in Replica's format under ``root``/room0:
+    results/frame%06d.jpg, depth%06d.png (depth x 6553.5 as uint16),
+    traj.txt (a row-major c2w per line), and its dataset YAML."""
+    from splatam_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=frames, width=size[0], height=size[1],
+                          seed=0, device=dev)
+    seq = os.path.join(root, "room0", "results")
+    os.makedirs(seq, exist_ok=True)
+    lines = []
+    for i in range(frames):
+        color, depth, _, pose = ds[i]
+        write_jpeg(os.path.join(seq, f"frame{i:06d}.jpg"),
+                   np.round(color).astype(np.uint8))
+        write_png(os.path.join(seq, f"depth{i:06d}.png"),
+                  np.round(depth[..., 0] * 6553.5).astype(np.uint16))
+        lines.append(" ".join(repr(float(v)) for v in pose.ravel()))
+    with open(os.path.join(root, "room0", "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    yaml = os.path.join(root, "replica.yaml")
+    _yaml(yaml, "replica", ds.k, *size, 6553.5, 0)
+    return yaml
+
+
+def write_tum(root, dev, frames=CLI_FRAMES, size=(640, 480)):
+    """The synthetic sequence in TUM RGB-D's format under ``root``/
+    rgbd_dataset_freiburg1_desk: rgb/ and depth/ PNGs (depth x 5000 as
+    uint16, stamped 5 ms after the color), rgb.txt, depth.txt and
+    groundtruth.txt at 30 Hz, and a dataset YAML with TUM's crop_edge 8."""
+    from scipy.spatial.transform import Rotation
+
+    from splatam_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=frames, width=size[0], height=size[1],
+                          seed=0, device=dev)
+    seq = os.path.join(root, "rgbd_dataset_freiburg1_desk")
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    rgb, dep = ["# color images"], ["# depth maps"]
+    gt = ["# timestamp tx ty tz qx qy qz qw"]
+    for i in range(frames):
+        color, depth, _, pose = ds[i]
+        t = 1305031102.0 + i / 30.0
+        write_png(os.path.join(seq, "rgb", f"{t:.6f}.png"),
+                  np.round(color).astype(np.uint8))
+        write_png(os.path.join(seq, "depth", f"{t + 0.005:.6f}.png"),
+                  np.round(depth[..., 0] * 5000.0).astype(np.uint16))
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+        dep.append(f"{t + 0.005:.6f} depth/{t + 0.005:.6f}.png")
+        q = Rotation.from_matrix(pose[:3, :3].astype(np.float64)).as_quat()
+        gt.append(f"{t:.6f} " + " ".join(repr(float(v)) for v in pose[:3, 3])
+                  + " " + " ".join(repr(float(v)) for v in q))
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                        ("groundtruth.txt", gt)):
+        with open(os.path.join(seq, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    yaml = os.path.join(root, "tum.yaml")
+    _yaml(yaml, "tum", ds.k, *size, 5000.0, 8)
+    return yaml
+
+
+def experiment_file(path, base, overrides):
+    """Write an experiment file that loads the shipped config ``base`` as it
+    is and applies ``overrides`` ((key path, value) pairs), each printed as
+    a [cut] line."""
+    from splatam_torch.run.common import load_experiment_config
+
+    config = load_experiment_config(base)
+    for keys, value in overrides:
+        cut(config, keys, value)
+    with open(path, "w") as f:
+        f.write(
+            "import importlib.util\nimport json\n\n"
+            f"_spec = importlib.util.spec_from_file_location('base', {base!r})\n"
+            "_mod = importlib.util.module_from_spec(_spec)\n"
+            "_spec.loader.exec_module(_mod)\nconfig = _mod.config\n"
+            f"for _keys, _value in json.loads({json.dumps(overrides)!r}):\n"
+            "    _d = config\n    for _k in _keys[:-1]:\n        _d = _d[_k]\n"
+            "    _d[_keys[-1]] = _value\n")
+    return config
+
+
+def data_line():
+    """The host's image and YAML libraries, the native decoder's build, and
+    the decoder the loaders use."""
+    import importlib.util
+
+    from splatam_torch import native
+    from splatam_torch.data import base
+
+    mods = {m: importlib.util.find_spec(m) is not None
+            for m in ("imageio", "PIL", "cv2", "yaml")}
+    built = native.native_available()
+    log("[data] imports: " + ", ".join(f"{m} {'yes' if ok else 'no'}"
+                                      for m, ok in mods.items())
+        + "; native decoder (g++ with jpeglib.h and png.h): "
+        + ("built" if built else f"not built ({native.build_error})")
+        + f"; the loaders decode with {base.IMREAD_DECODER}")
+    if base.IMREAD_DECODER is None:
+        fail("[data] neither imageio nor Pillow imports: the loaders cannot "
+             "decode")
+
+
+def run_cli(tag, exp, config, dev):
+    """``splatam_torch.run.slam.main`` on ``exp`` (whose config is
+    ``config``) with every kernel's count set to 0 before and read after,
+    the evaluation's launches apart. Returns (state, results, launches,
+    wall seconds)."""
+    from splatam_torch.render.binning import RasterConfig
+    from splatam_torch.run import slam
+
+    eval_sequence = slam.eval_sequence
+    evals = {}
+
+    def counted(*args, **kwargs):
+        before = read_launches()
+        out = eval_sequence(*args, **kwargs)
+        evals.update({k: v - before[k] for k, v in read_launches().items()})
+        return out
+
+    slam.eval_sequence = counted
+    try:
+        reset_launches()
+        t0 = time.time()
+        state, results = slam.main([exp, "--device", str(dev)])
+        wall = time.time() - t0
+        launches = read_launches()
+    finally:
+        slam.eval_sequence = eval_sequence
+    if results is None:
+        fail(f"slam_cli {tag}: the evaluation failed")
+    c = state.counts
+    iters = c["tracking_iters"] + c["mapping_iters"]
+    expect = expected_launches(
+        state.layout, iters + c["densify_renders"] + c["progress_renders"],
+        iters)
+    # the eval's renders: the config's raster layout (split by default)
+    expect_eval = expected_launches(
+        RasterConfig(**config.get("raster", {})).layout, results["frames"], 0)
+    check_launches(f"slam_cli {tag} eval", evals, expect_eval)
+    for k, v in expect_eval.items():
+        expect[k] += v
+    check_launches(f"slam_cli {tag}", launches, expect)
+    return state, results, launches, wall
+
+
+def phase_slam_cli(dev, frames=CLI_FRAMES):
+    """``python -m splatam_torch.run.slam`` (its ``main``) with the shipped
+    Replica, SplaTAM-S and TUM configs on synthetic sequences written in
+    those datasets' formats, at the configs' own sizes, iterations and keys;
+    then a resume from the Replica run's checkpoint at frame 4."""
+    import shutil
+
+    import torch
+
+    from splatam_torch.core.params import num_gaussians
+
+    data_line()
+    root = os.path.join(ROOT, "build", "slam_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    t0 = time.time()
+    runs = []
+    yaml = write_replica(os.path.join(data, "Replica"), dev, frames)
+    for name in ("splatam.py", "splatam_s.py"):
+        extra = ([(("save_checkpoints",), True),
+                  (("checkpoint_interval",), 4)]
+                 if name == "splatam.py" else [])
+        runs.append(("replica/" + name, os.path.join(data, "Replica"), yaml,
+                     extra))
+    yaml = write_tum(os.path.join(data, "TUM"), dev, frames)
+    runs.append(("tum/splatam.py", os.path.join(data, "TUM"), yaml, []))
+    log(f"[slam_cli] sequences written in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    results, total = {}, {k: 0 for k in KERNEL_NAMES}
+    for name, basedir, yaml, extra in runs:
+        tag = name.replace("/", "_").replace(".py", "")
+        workdir = os.path.join(root, "experiments", tag)
+        exp = os.path.join(root, f"{tag}.py")
+        log(f"[slam_cli] {name}:")
+        config = experiment_file(
+            exp, os.path.join(ROOT, "configs", name),
+            [(("data", "basedir"), basedir),
+             (("data", "gradslam_data_cfg"), yaml),
+             (("workdir",), workdir),
+             (("data", "num_frames"), frames)] + extra)
+        state, res, launches, wall = run_cli(tag, exp, config, dev)
+        run_dir = os.path.join(workdir, config["run_name"])
+        for f in ("params.npz", "splat.ply", os.path.join("eval", "psnr.txt")):
+            if not os.path.exists(os.path.join(run_dir, f)):
+                fail(f"slam_cli {tag}: {f} was not written")
+        if not (math.isfinite(res["ate_rmse"]) and math.isfinite(res["psnr"])):
+            fail(f"slam_cli {tag}: ATE {res['ate_rmse']} / PSNR {res['psnr']}")
+        if any(state.nonfinite.values()):
+            fail(f"slam_cli {tag}: non-finite iterations {state.nonfinite}")
+        c = state.counts
+        r = dict(
+            s_per_frame=(wall - res["eval_s"]) / frames,
+            ate_mm=1e3 * res["ate_rmse"], psnr=res["psnr"],
+            eval_ms_per_frame=1e3 * res["eval_s"] / res["frames"],
+            eval_frames=res["frames"], gaussians=num_gaussians(state.params),
+            layout=state.layout, doubled=c["tracking_doubled"],
+            tracking_iters=c["tracking_iters"], mapping_iters=c["mapping_iters"])
+        log(f"[slam_cli] {name}: {json.dumps(r)}")
+        log(f"[slam_cli] {name}: mean ms per iteration tracking "
+            f"{1e3 * np.mean(state.timing['tracking_iter']):.2f}, mapping "
+            f"{1e3 * np.mean(state.timing['mapping_iter']):.2f}; frames whose "
+            f"tracking doubled: {c['tracking_doubled']}")
+        results[tag] = r
+        for k in KERNEL_NAMES:
+            total[k] += launches[k]
+        if name == "replica/splatam.py":
+            first = state
+        else:
+            del state
+        torch.cuda.empty_cache()
+
+    log("[slam_cli] replica/splatam.py resumed from its frame-4 "
+        "checkpoint:")
+    exp = os.path.join(root, "replica_splatam_resume.py")
+    workdir = os.path.join(root, "experiments", "replica_splatam")
+    config = experiment_file(
+        exp, os.path.join(ROOT, "configs", "replica", "splatam.py"),
+        [(("data", "basedir"), os.path.join(data, "Replica")),
+         (("data", "gradslam_data_cfg"), os.path.join(data, "Replica",
+                                                      "replica.yaml")),
+         (("workdir",), workdir), (("data", "num_frames"), frames),
+         (("load_checkpoint",), True), (("checkpoint_time_idx",), 4)])
+    state, res, launches, wall = run_cli("replica_resume", exp, config, dev)
+    if state.counts["tracking_iters"] != (config["tracking"]["num_iters"]
+                                          * (frames - 4)):
+        fail(f"slam_cli resume: tracking iterations {state.counts}")
+    from splatam_torch.core.params import get_pose
+
+    gap = max(float((get_pose(state.params, t)[1]
+                     - get_pose(first.params, t)[1]).abs().max())
+              for t in range(frames))
+    log(f"[slam_cli] resumed: frames 4-{frames - 1} in {wall:.1f} s, "
+        f"{num_gaussians(state.params)} gaussians (the full run "
+        f"{num_gaussians(first.params)}), ATE "
+        f"{1e3 * res['ate_rmse']:.3f} mm, PSNR {res['psnr']:.2f} dB; "
+        f"largest translation gap to the full run's poses {gap:.3g} m")
+    results["replica_resume"] = dict(ate_mm=1e3 * res["ate_rmse"],
+                                     psnr=res["psnr"], gap_m=gap)
+    for k in KERNEL_NAMES:
+        total[k] += launches[k]
+    del state, first
+    torch.cuda.empty_cache()
+    return results, total
+
+
 PALLAS = "splatam_tpu/render/pallas_raster.py"
 SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
     "B1": ("raster_fwd", "raster_fwd.cu", f"{PALLAS}:567"),
@@ -1678,7 +2028,7 @@ SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
 
 
 def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
-          offline=None, post=None, realtime=None, probes=None):
+          offline=None, post=None, realtime=None, probes=None, slam_cli=None):
     """Phases 2-9 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
@@ -1722,11 +2072,15 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     t = time.time()
     rt, rt_launches = phase_realtime(dev, **(realtime or {}))
     log(f"[realtime] phase in {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.time()
+    cli, cli_launches = phase_slam_cli(dev, **(slam_cli or {}))
+    log(f"[slam_cli] phase in {time.time() - t:.1f} s")
     # the main paths' launches: the bench, the probes, SLAM, offline
-    # training, refinement, realtime
+    # training, refinement, realtime, the SLAM CLI
     for k in KERNEL_NAMES:
         launches[k] += (bench_launches[k] + probe_launches[k] + off_launches[k]
-                        + post_launches[k] + rt_launches[k])
+                        + post_launches[k] + rt_launches[k] + cli_launches[k])
     for k, e in probe_entries.items():
         times[k], bounds[k] = (e["ms"], e["plain_ms"]), e["bound"]
 
@@ -1752,7 +2106,11 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
         f"refinement {post_['ms_per_iter']:.2f} ms/iteration, PSNR "
         f"{post_['psnr_loaded']:.2f} -> {post_['psnr']:.2f} dB; realtime "
         f"{rt['s_per_frame']:.3f} s/frame, {rt['ms_per_candidate']:.2f} ms "
-        f"per candidate, {rt['ms_per_h_train']:.1f} ms per H_train recompute")
+        f"per candidate, {rt['ms_per_h_train']:.1f} ms per H_train recompute"
+        "; SLAM CLI " + ", ".join(
+            f"{tag} {r['s_per_frame']:.2f} s/frame ATE {r['ate_mm']:.2f} mm "
+            f"PSNR {r['psnr']:.2f} dB eval {r['eval_ms_per_frame']:.1f} ms/frame"
+            for tag, r in cli.items() if "s_per_frame" in r))
     return kernels, summary
 
 
@@ -1778,6 +2136,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    if args.frames != 60:
+        log(f"[cut] [slam] frames: 60 -> {args.frames}")
     phase_build()
     kernels, summary = smoke(torch.device("cuda"), args.frames)
     log(f"[total] {time.time() - t_start:.1f} s; {summary}")

@@ -9,6 +9,7 @@ the render into an image, except for the RGB channels that SSIM filters.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple
 
@@ -37,11 +38,16 @@ def calc_psnr(img1, img2):
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
 
 
-def _gauss_window(window_size: int, sigma: float, channels: int, device):
+@functools.lru_cache(maxsize=None)
+def _gauss_window(window_size: int, sigma: float, channels: int,
+                  device: torch.device, dtype: torch.dtype = torch.float32):
+    """The depthwise SSIM window, built once per (size, sigma, channels,
+    device, dtype): building it is a host-to-device copy the caller would
+    otherwise wait on at every call."""
     g = torch.tensor(
         [math.exp(-((x - window_size // 2) ** 2) / (2 * sigma**2))
          for x in range(window_size)],
-        dtype=torch.float32, device=device,
+        dtype=dtype, device=device,
     )
     g = g / g.sum()
     return (g[:, None] @ g[None, :]).expand(channels, 1, window_size, window_size)
@@ -51,7 +57,7 @@ def calc_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11):
     """SSIM over (C, H, W) images: 11x11 Gaussian window, sigma 1.5, zero
     'same' padding (a depthwise F.conv2d, as in the reference)."""
     c = img1.shape[0]
-    win = _gauss_window(window_size, 1.5, c, img1.device)
+    win = _gauss_window(window_size, 1.5, c, img1.device, img1.dtype)
 
     def conv(x):
         return F.conv2d(x[None], win, padding=window_size // 2, groups=c)[0]

@@ -14,6 +14,7 @@ of TF32 on the card.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,12 +30,24 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return (20.0 * torch.log10(1.0 / torch.sqrt(mse))).mean()
 
 
-def _gauss_1d(size: int, sigma: float, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _gauss_1d(size: int, sigma: float, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The 1-D SSIM window, built once per (size, sigma, device, dtype):
+    each build is a host-to-device copy."""
     g = torch.tensor(
         [math.exp(-((x - size // 2) ** 2) / (2 * sigma**2)) for x in range(size)],
-        dtype=torch.float32, device=device,
+        dtype=dtype, device=device,
     )
     return g / g.sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_weights(weights: tuple, usable: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """MS-SSIM's first ``usable`` scale weights, renormalized (cached)."""
+    w = torch.tensor(weights[:usable], dtype=dtype, device=device)
+    return w / w.sum()
 
 
 def _filter_valid(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -61,7 +74,8 @@ def _ssim_maps(img1, img2, g, data_range=1.0, k1=0.01, k2=0.03):
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          data_range: float = 1.0) -> torch.Tensor:
     """Single-scale SSIM over (C, H, W), VALID padding."""
-    s, _ = _ssim_maps(img1, img2, _gauss_1d(11, 1.5, img1.device), data_range)
+    s, _ = _ssim_maps(img1, img2, _gauss_1d(11, 1.5, img1.device, img1.dtype),
+                      data_range)
     return s.mean()
 
 
@@ -75,11 +89,10 @@ def ms_ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
             weights=MS_SSIM_WEIGHTS) -> torch.Tensor:
     """Multi-scale SSIM over (C, H, W); all five scales need
     min(H, W) > 160."""
-    g = _gauss_1d(11, 1.5, img1.device)
+    g = _gauss_1d(11, 1.5, img1.device, img1.dtype)
     min_dim = min(img1.shape[1], img1.shape[2])
     usable = max(1, min(len(weights), int(math.log2(max(min_dim // 11, 1))) + 1))
-    w = torch.tensor(weights[:usable], dtype=torch.float32, device=img1.device)
-    w = w / w.sum()
+    w = _scale_weights(tuple(weights), usable, img1.device, img1.dtype)
     terms = []
     x, y = img1, img2
     for i in range(usable):

@@ -3,8 +3,8 @@
 Counterpart of ``splatam_tpu/run/common.py`` (`scripts/splatam.py:1039-1061`):
 experiment configs are executable Python modules exposing a ``config``
 dict, loaded by path (the files under ``configs/`` load as they are) and
-copied into the results directory. Dataset construction waits for the
-port's data loaders.
+copied into the results directory; ``build_dataset`` reads
+``config["data"]`` with the port's loaders (``splatam_torch/data``).
 """
 from __future__ import annotations
 
@@ -13,10 +13,12 @@ import importlib.util
 import os
 import random
 import shutil
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from splatam_torch.data import get_dataset, load_dataset_config
 
 
 def seed_everything(seed: int = 42) -> None:
@@ -45,6 +47,56 @@ def prepare_results_dir(config: Dict, config_path: str) -> str:
     except shutil.SameFileError:
         pass
     return results_dir
+
+
+def build_dataset(
+    config: Dict,
+    desired_height: Optional[int] = None,
+    desired_width: Optional[int] = None,
+    use_train_split: Optional[bool] = None,
+):
+    """The dataset ``config["data"]`` describes, at its desired size or at
+    ``desired_height`` x ``desired_width``."""
+    d = config["data"]
+    cfg_path = d.get("gradslam_data_cfg")
+    if cfg_path:
+        data_cfg = load_dataset_config(cfg_path)
+    else:
+        # ScanNet++/NeRFCapture read intrinsics from their own metadata
+        data_cfg = {"dataset_name": d.get("dataset_name", "scannetpp")}
+    kwargs = dict(
+        start=d.get("start", 0),
+        end=d.get("end", -1),
+        stride=d.get("stride", 1),
+        desired_height=desired_height or d["desired_image_height"],
+        desired_width=desired_width or d["desired_image_width"],
+    )
+    if "ignore_bad" in d:
+        kwargs["ignore_bad"] = d["ignore_bad"]
+    if use_train_split is not None:
+        kwargs["use_train_split"] = use_train_split
+    elif "use_train_split" in d:
+        kwargs["use_train_split"] = d["use_train_split"]
+    return get_dataset(
+        data_cfg, d["basedir"], os.path.basename(d["sequence"]), **kwargs
+    )
+
+
+def build_datasets_with_resolutions(config: Dict):
+    """The main dataset and, where the config asks for another size, the
+    tracking and densification datasets (None otherwise;
+    `scripts/splatam.py:504-607`)."""
+    d = config["data"]
+    dataset = build_dataset(config)
+    tracking_dataset = None
+    densify_dataset = None
+    th, tw = d.get("tracking_image_height"), d.get("tracking_image_width")
+    if th and (th != d["desired_image_height"] or tw != d["desired_image_width"]):
+        tracking_dataset = build_dataset(config, th, tw)
+    dh, dw = d.get("densification_image_height"), d.get("densification_image_width")
+    if dh and (dh != d["desired_image_height"] or dw != d["desired_image_width"]):
+        densify_dataset = build_dataset(config, dh, dw)
+    return dataset, tracking_dataset, densify_dataset
 
 
 def standard_argparser(description: str) -> argparse.ArgumentParser:

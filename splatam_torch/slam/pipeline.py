@@ -2,15 +2,22 @@
 
 Counterpart of ``splatam_tpu/slam/pipeline.py`` (`rgbd_slam`,
 `scripts/splatam.py:461-1010`) and of its config schema, so the same config
-dicts run in both. Not ported yet: checkpoint resume, wandb, separate
-tracking/densify resolutions, Inria densification, bundle adjustment and
-the depth-loss-threshold iteration doubling. A config whose ``raster`` does
-not set ``layout`` gets it from frame 0's instance density
-(``resolve_auto_layout``), as in JAX.
+dicts run in both: separate tracking and densification resolutions, the
+depth-loss-threshold doubling of the tracking iterations, ``fixed_binning``,
+``report_global_progress_every``, checkpoint resume and the periodic save,
+and ``frame_callback``. A config whose ``raster`` does not set ``layout``
+gets it from frame 0's instance density (``resolve_auto_layout``), as in
+JAX. ``map_capacity`` (the JAX package's pre-sized map capacity) is
+accepted and ignored: the port's map grows. Not ported yet (ROADMAP A3):
+wandb, bundle adjustment (``mapping.do_ba``), Inria densification inside
+mapping (``mapping.use_gaussian_splatting_densification``) and the
+tracking-loss figures (``tracking.visualize_tracking_loss``); a config that
+turns one on raises before frame 0.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List
 
@@ -28,7 +35,9 @@ from splatam_torch.core.params import (
 )
 from splatam_torch.core.transforms import matrix_to_quaternion, pose_to_w2c
 from splatam_torch.device import resolve_device
+from splatam_torch.eval.report import report_progress
 from splatam_torch.render.binning import RasterConfig
+from splatam_torch.render.camera import setup_camera
 from splatam_torch.render.geometry import grid_dims
 from splatam_torch.slam.densify import add_new_gaussians
 from splatam_torch.slam.initialize import initialize_first_timestep
@@ -39,6 +48,7 @@ from splatam_torch.slam.mapping import (
     prune_gaussians,
 )
 from splatam_torch.slam.tracking import initialize_camera_pose, track_frame
+from splatam_torch.utils.checkpoint import load_params, save_params_ckpt
 
 
 def as_frame(color, depth, device):
@@ -82,9 +92,34 @@ class SlamState:
         }
         # iterations run and renders made, for launch accounting
         self.counts = {"tracking_iters": 0, "mapping_iters": 0,
-                       "densify_renders": 0}
+                       "densify_renders": 0, "progress_renders": 0,
+                       "tracking_doubled": 0}
         self.nonfinite = {"tracking": 0, "mapping": 0}
         self.layout = None  # the raster layout the run used
+
+
+# (section, key, the value the port runs): a config that sets one of these
+# keys to another value asks for what the port does not run yet
+UNPORTED_KEYS = (
+    (None, "use_wandb", False),
+    ("mapping", "do_ba", False),
+    ("mapping", "use_gaussian_splatting_densification", False),
+    ("tracking", "visualize_tracking_loss", False),
+)
+
+
+def check_ported(config: Dict) -> None:
+    """Raise ValueError for a config key set to a value the port does not
+    run yet."""
+    for section, key, ported in UNPORTED_KEYS:
+        d = config if section is None else config.get(section, {})
+        value = d.get(key, ported)
+        if value != ported:
+            name = key if section is None else f"{section}.{key}"
+            raise ValueError(
+                f"config key {name}={value!r} is not ported to splatam_torch "
+                f"yet (ROADMAP A3); set it to {ported!r}"
+            )
 
 
 def _sync(device: torch.device) -> None:
@@ -92,12 +127,50 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def rgbd_slam(config: Dict, dataset, progress: bool = True,
-              device=None) -> SlamState:
+def _camera_of(ds, first_w2c, dev):
+    """The camera, and its intrinsics, of ``ds``'s frames at first_w2c."""
+    color, _, k4, _ = ds[0]
+    k3 = np.asarray(k4)[:3, :3]
+    cam = setup_camera(np.asarray(color).shape[1], np.asarray(color).shape[0],
+                       k3, first_w2c, device=dev)
+    return cam, k3
+
+
+def _resume(config, dataset, state, dev):
+    """Load the checkpoint ``config`` names and rebuild the frames before it:
+    their ground-truth poses and keyframes (`scripts/splatam.py:624-658`).
+    Returns (params, variables, the frame to start at)."""
+    ckpt_idx = config["checkpoint_time_idx"]
+    ckpt_dir = os.path.join(config["workdir"], config["run_name"])
+    params, variables, _ = load_params(
+        os.path.join(ckpt_dir, f"params{ckpt_idx}.npz"), device=dev)
+    kf_inds = np.load(
+        os.path.join(ckpt_dir, f"keyframe_time_indices{ckpt_idx}.npy"))
+    for t in range(ckpt_idx):
+        color, depth, _, pose = dataset[t]
+        state.gt_w2c_all.append(np.linalg.inv(np.asarray(pose, dtype=np.float64)))
+        if t in kf_inds:
+            frame_im, frame_depth = as_frame(color, depth, dev)
+            curr_w2c = pose_to_w2c(*get_pose(params, t)).cpu().numpy()
+            state.keyframe_list.append(
+                {"id": t, "est_w2c": curr_w2c, "im": frame_im,
+                 "depth": frame_depth})
+            state.keyframe_time_indices.append(t)
+    return params, variables, ckpt_idx
+
+
+def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
+              densify_dataset=None, progress: bool = True,
+              frame_callback=None, device=None) -> SlamState:
     """Run SplaTAM over ``dataset`` (sequence of (color, depth, K, c2w)).
 
-    Runs on ``device`` (None means CUDA; raises when CUDA is absent)."""
+    ``tracking_dataset`` / ``densify_dataset`` optionally give the same
+    sequence at other resolutions (SplaTAM-S tracks at full and densifies
+    at half resolution, `scripts/splatam.py:504-607`).
+    ``frame_callback(time_idx, state)`` runs before each frame. Runs on
+    ``device`` (None means CUDA; raises when CUDA is absent)."""
     dev = resolve_device(device)
+    check_ported(config)
     cfg_track = config["tracking"]
     cfg_map = config["mapping"]
     raster_cfg = RasterConfig(**config.get("raster", {}))
@@ -129,15 +202,34 @@ def rgbd_slam(config: Dict, dataset, progress: bool = True,
             print(f"[info] auto layout: {raster_cfg.layout} ({total0} "
                   f"instances, {total0 / (gx * gy):.0f}/tile at frame 0)")
     state.layout = raster_cfg.layout
+    # separate-resolution cameras (`scripts/splatam.py:557-607`)
+    track_cam, densify_cam, densify_k3 = cam, cam, k3
+    if tracking_dataset is not None:
+        track_cam, _ = _camera_of(tracking_dataset, first_w2c, dev)
+    if densify_dataset is not None:
+        densify_cam, densify_k3 = _camera_of(densify_dataset, first_w2c, dev)
     gauss_lrs = {k: v for k, v in cfg_map["lrs"].items() if k in GAUSSIAN_KEYS}
     nonfinite_track = torch.zeros((), dtype=torch.int32, device=dev)
     nonfinite_map = torch.zeros((), dtype=torch.int32, device=dev)
+    fixed_binning = cfg_track.get("fixed_binning", False)
+    progress_every = config.get("report_global_progress_every", 0)
 
-    for time_idx in range(num_frames):
+    start_frame = 0
+    if config.get("load_checkpoint", False):
+        params, variables, start_frame = _resume(config, dataset, state, dev)
+
+    for time_idx in range(start_frame, num_frames):
+        if frame_callback is not None:
+            frame_callback(time_idx, state)
         color, depth, _, pose = dataset[time_idx]
         gt_w2c = np.linalg.inv(np.asarray(pose, dtype=np.float64))
         state.gt_w2c_all.append(gt_w2c)
         frame_im, frame_depth = as_frame(color, depth, dev)
+        if tracking_dataset is not None:
+            tc, td, _, _ = tracking_dataset[time_idx]
+            track_im, track_depth = as_frame(tc, td, dev)
+        else:
+            track_im, track_depth = frame_im, frame_depth
 
         # --- tracking ---
         t0 = time.time()
@@ -151,33 +243,70 @@ def rgbd_slam(config: Dict, dataset, progress: bool = True,
                     params, time_idx, cfg_track["forward_prop"]
                 )
                 n_iters = cfg_track["num_iters"]
-                res = track_frame(
-                    {k: params[k] for k in GAUSSIAN_KEYS}, rot0, tran0,
-                    frame_im, frame_depth, cam, raster_cfg, num_iters=n_iters,
-                    use_sil_for_loss=cfg_track["use_sil_for_loss"],
-                    sil_thres=cfg_track["sil_thres"],
-                    ignore_outlier_depth_loss=cfg_track["ignore_outlier_depth_loss"],
-                    loss_w_im=cfg_track["loss_weights"]["im"],
-                    loss_w_depth=cfg_track["loss_weights"]["depth"],
-                    lr_rot=cfg_track["lrs"]["cam_unnorm_rots"],
-                    lr_tran=cfg_track["lrs"]["cam_trans"],
-                    rebin_every=cfg_track.get("rebin_every", 10),
-                )
+                gauss = {k: params[k] for k in GAUSSIAN_KEYS}
+
+                def run_track(resume=None):
+                    return track_frame(
+                        gauss, rot0, tran0, track_im, track_depth, track_cam,
+                        raster_cfg, num_iters=n_iters,
+                        use_sil_for_loss=cfg_track["use_sil_for_loss"],
+                        sil_thres=cfg_track["sil_thres"],
+                        ignore_outlier_depth_loss=cfg_track["ignore_outlier_depth_loss"],
+                        loss_w_im=cfg_track["loss_weights"]["im"],
+                        loss_w_depth=cfg_track["loss_weights"]["depth"],
+                        lr_rot=cfg_track["lrs"]["cam_unnorm_rots"],
+                        lr_tran=cfg_track["lrs"]["cam_trans"],
+                        rebin_every=cfg_track.get("rebin_every", 10),
+                        fixed_binning=fixed_binning, resume=resume,
+                    )
+
+                res = run_track()
+                iters_run = n_iters
+                if (
+                    cfg_track.get("use_depth_loss_thres", False)
+                    and float(res.last_losses["depth"])
+                    >= cfg_track.get("depth_loss_thres", 1e9)
+                ):
+                    # double the iterations once by CONTINUING the same Adam
+                    # run: pose, moments and best candidate carry over
+                    # (`scripts/splatam.py:745-758`, do_continue_slam)
+                    nonfinite_track = nonfinite_track + res.nonfinite
+                    res = run_track(resume=res.resume_state)
+                    iters_run += n_iters
+                    state.counts["tracking_doubled"] += 1
                 set_pose(params, time_idx, res.best_rot, res.best_tran)
                 nonfinite_track = nonfinite_track + res.nonfinite
-                state.counts["tracking_iters"] += n_iters
+                state.counts["tracking_iters"] += iters_run
                 _sync(dev)
                 state.timing["tracking_iter"].append(
-                    (time.time() - t0) / max(n_iters, 1)
+                    (time.time() - t0) / max(iters_run, 1)
                 )
         state.timing["tracking_frame"].append(time.time() - t0)
+
+        # --- global progress telemetry (`utils/eval_helpers.py:152-276`) ---
+        if progress_every and ((time_idx + 1) % progress_every == 0
+                               or time_idx == num_frames - 1):
+            stats = report_progress(
+                params, frame_im, frame_depth, cam, raster_cfg, time_idx,
+                cfg_track["sil_thres"], tracking=True,
+                gt_w2c_list=state.gt_w2c_all, first_w2c=state.first_w2c,
+            )
+            state.counts["progress_renders"] += 1
+            if progress:
+                print(f"  progress@{time_idx}: psnr={stats['psnr']:.2f} "
+                      f"ate={stats.get('ate', float('nan')) * 100:.2f}cm")
 
         # --- densification + mapping ---
         if time_idx == 0 or (time_idx + 1) % config["map_every"] == 0:
             if cfg_map["add_new_gaussians"] and time_idx > 0:
+                if densify_dataset is not None:
+                    dc, dd, _, _ = densify_dataset[time_idx]
+                    dens_im, dens_depth = as_frame(dc, dd, dev)
+                else:
+                    dens_im, dens_depth = frame_im, frame_depth
                 params, variables, _ = add_new_gaussians(
-                    params, variables, frame_im, frame_depth, k3, cam,
-                    raster_cfg, cfg_map["sil_thres"], time_idx,
+                    params, variables, dens_im, dens_depth, densify_k3,
+                    densify_cam, raster_cfg, cfg_map["sil_thres"], time_idx,
                     config.get("gaussian_distribution", "isotropic"),
                     pose=get_pose(params, time_idx),
                 )
@@ -260,6 +389,19 @@ def rgbd_slam(config: Dict, dataset, progress: bool = True,
                  "depth": frame_depth}
             )
             state.keyframe_time_indices.append(time_idx)
+
+        # --- periodic checkpoint (`scripts/splatam.py:947-951`) ---
+        if (
+            config.get("save_checkpoints", False)
+            and time_idx % config.get("checkpoint_interval", 100) == 0
+            and time_idx > 0
+        ):
+            ckpt_dir = os.path.join(config["workdir"], config["run_name"])
+            save_params_ckpt(params, variables, ckpt_dir, time_idx)
+            np.save(
+                os.path.join(ckpt_dir, f"keyframe_time_indices{time_idx}.npy"),
+                np.array(state.keyframe_time_indices),
+            )
 
         if progress and (time_idx % 10 == 0 or time_idx == num_frames - 1):
             print(f"frame {time_idx}/{num_frames}  "

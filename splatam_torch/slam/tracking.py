@@ -3,7 +3,8 @@
 Counterpart of ``splatam_tpu/slam/tracking.py`` (`scripts/splatam.py:696-764`):
 constant-velocity pose init, N Adam iterations on (cam_unnorm_rot, cam_trans)
 against the silhouette-masked sum-L1 loss, keeping the post-step pose of the
-iteration with the lowest pre-step loss. The loop runs eagerly; the
+iteration with the lowest pre-step loss; a call can resume another's Adam
+run (the depth-loss-threshold doubling). The loop runs eagerly; the
 candidate bookkeeping and the non-finite-loss guard stay on the device, so
 no iteration waits on the host.
 """
@@ -14,7 +15,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from splatam_torch.core.losses import compute_binned, slam_loss
-from splatam_torch.core.optim import adam_step, init_adam
+from splatam_torch.core.optim import AdamState, adam_step, init_adam
 from splatam_torch.core.transforms import normalize
 from splatam_torch.render.binning import RasterConfig
 from splatam_torch.render.camera import Camera
@@ -25,6 +26,21 @@ class TrackResult(NamedTuple):
     best_tran: torch.Tensor  # (3,)
     best_loss: torch.Tensor  # ()
     nonfinite: torch.Tensor  # () iterations whose update was skipped
+    last_losses: Dict[str, torch.Tensor]  # the last iteration's losses
+    final_rot: torch.Tensor  # (4,) post-step pose of the last iteration
+    final_tran: torch.Tensor  # (3,)
+    opt: AdamState  # pass back through ``resume`` to continue
+    sat_depth: torch.Tensor | None  # the last render's, for the next binning
+
+    @property
+    def resume_state(self):
+        """Carry for continuing this optimization: the depth-loss-threshold
+        doubling continues the SAME Adam run (`scripts/splatam.py:745-758`)."""
+        return (
+            {"rot": self.final_rot, "tran": self.final_tran},
+            self.opt, self.best_rot, self.best_tran, self.best_loss,
+            self.sat_depth,
+        )
 
 
 def initialize_camera_pose(
@@ -59,22 +75,36 @@ def track_frame(
     lr_rot: float = 0.0004,
     lr_tran: float = 0.002,
     rebin_every: int = 10,
+    fixed_binning: bool = False,
+    resume=None,
 ) -> TrackResult:
-    """Track one frame. Binning is frozen for ``rebin_every`` iterations and
-    redone at the current pose, capped at the latest render's per-tile
-    saturation depth; ``rebin_every=0`` bins afresh every iteration."""
-    pose = {
-        "rot": rot0.detach().clone().requires_grad_(),
-        "tran": tran0.detach().clone().requires_grad_(),
-    }
-    opt = init_adam(pose)
+    """Track one frame from the pose (``rot0``, ``tran0``).
+
+    Binning is frozen for ``rebin_every`` iterations and redone at the
+    current pose, capped at the latest render's per-tile saturation depth;
+    ``rebin_every=0`` bins afresh every iteration. ``fixed_binning`` bins
+    once, at (``rot0``, ``tran0``), for every iteration of the call (the
+    JAX ``track_frame``'s ``fixed_binning``). ``resume`` (a previous
+    result's ``resume_state``) continues the same Adam run: pose, moments,
+    step count and best candidate carry over."""
     lrs = {"rot": lr_rot, "tran": lr_tran}
-    best_rot, best_tran = rot0.detach().clone(), tran0.detach().clone()
-    best_loss = torch.tensor(1e20, device=rot0.device)
     nonfinite = torch.zeros((), dtype=torch.int32, device=rot0.device)
-    binned, sat, out = None, None, None
+    if resume is None:
+        start = {"rot": rot0, "tran": tran0}
+        opt = None
+        best_rot, best_tran = rot0.detach().clone(), tran0.detach().clone()
+        best_loss = torch.tensor(1e20, device=rot0.device)
+        sat = None
+    else:
+        start, opt, best_rot, best_tran, best_loss, sat = resume
+    pose = {k: v.detach().clone().requires_grad_() for k, v in start.items()}
+    if opt is None:
+        opt = init_adam(pose)
+    binned, out = None, None
+    if fixed_binning:
+        binned = compute_binned(params, rot0.detach(), tran0.detach(), cam, cfg)
     for i in range(num_iters):
-        if rebin_every and i % rebin_every == 0:
+        if not fixed_binning and rebin_every and i % rebin_every == 0:
             binned = compute_binned(
                 params, pose["rot"].detach(), pose["tran"].detach(), cam, cfg,
                 depth_cap=sat,
@@ -98,7 +128,10 @@ def track_frame(
             best_loss = torch.where(better, out.loss.detach(), best_loss)
             nonfinite = nonfinite + (~finite).int()
         sat = out.sat_depth
+    last = {} if out is None else {k: v.detach() for k, v in out.losses.items()}
     return TrackResult(
         best_rot=best_rot, best_tran=best_tran, best_loss=best_loss,
-        nonfinite=nonfinite,
+        nonfinite=nonfinite, last_losses=last,
+        final_rot=pose["rot"].detach(), final_tran=pose["tran"].detach(),
+        opt=opt, sat_depth=sat,
     )

@@ -71,6 +71,12 @@ def save_params(
     return path
 
 
+def save_params_ckpt(params: Params, variables: Variables, output_dir: str,
+                     time_idx: int) -> str:
+    """The periodic SLAM checkpoint ``output_dir/params{time_idx}.npz``."""
+    return save_params(params, variables, output_dir, name=f"params{time_idx}")
+
+
 def params_from_checkpoint(raw: Dict[str, np.ndarray],
                            device=None) -> Tuple[Params, Variables]:
     """Tensors on ``device`` (None means CUDA) from the members of a params

@@ -37,6 +37,9 @@ def test_import_leaves_jax_out():
         "import splatam_torch.bench.kernel_ablate, splatam_torch.bench.vpu_probe\n"
         "import splatam_torch.bench.ilp_probe, splatam_torch.bench.step_overhead\n"
         "import splatam_torch.bench.fwd_stages\n"
+        "import splatam_torch.run.slam, splatam_torch.data\n"
+        "import splatam_torch.eval.runner, splatam_torch.eval.report\n"
+        "import splatam_torch.eval.lpips, splatam_torch.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -76,6 +79,9 @@ def _entry_points():
                                      step_overhead, vpu_probe)
     from splatam_torch.bench.__main__ import main as bench_main
     from splatam_torch.bench.scene import setup as bench_setup
+    from splatam_torch.data.synthetic import SyntheticDataset
+    from splatam_torch.eval.runner import eval_sequence
+    from splatam_torch.run import slam
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -102,6 +108,13 @@ def _entry_points():
         "ilp_probe.main": lambda: ilp_probe.main(["--steps", "1"]),
         "step_overhead.main": lambda: step_overhead.main(["--steps", "1"]),
         "fwd_stages.main": lambda: fwd_stages.main(["--n", "10"]),
+        "slam.main": lambda: slam.main(["config.py"]),
+        "rgbd_slam(dataset)": lambda: rgbd_slam(
+            {"tracking": {}, "mapping": {}, "data": {}},
+            SyntheticDataset(num_frames=2, width=16, height=16,
+                             device="cpu")),
+        "eval_sequence": lambda: eval_sequence(
+            [], {}, 0, "eval", 0.5, 0, False),
     }
 
 
@@ -110,7 +123,8 @@ def _entry_points():
              "offline_splatting", "post_splatam_opt", "load_params",
              "realtime_slam", "realtime.main", "bench.setup", "bench.main",
              "kernel_ablate.main", "vpu_probe.main", "ilp_probe.main",
-             "step_overhead.main", "fwd_stages.main"]
+             "step_overhead.main", "fwd_stages.main", "slam.main",
+             "rgbd_slam(dataset)", "eval_sequence"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it
