@@ -103,6 +103,29 @@ Phases, each of which must pass:
    exist, ATE and PSNR be finite, its launches match its renders and the
    evaluation's its frames. The Replica run saves a checkpoint at frame 4
    and one more run resumes from it.
+11. ``[clis]``: the other CLIs' ``main`` on ``[slam_cli]``'s Replica
+   sequence and map, each config as shipped but for the printed cuts,
+   each with exact launch counts (first a line of whether matplotlib,
+   open3d and wandb import; wandb, where present, runs disabled):
+   ``run.gaussian_splatting`` (``configs/replica/gaussian_splatting.py``,
+   8 frames, 200 iterations, densification scaled as ``[offline]``'s),
+   ``run.post_opt`` (``configs/replica/post_splatam_opt.py`` from the
+   Replica run's params.npz, 100 iterations, stride 1: stride 20 keeps 1
+   of 8 frames; PSNR within 0.5 dB of the loaded map's, or above),
+   ``run.export_ply`` (its PLY reads back to the SLAM CLI's splat.ply
+   arrays), ``run.viz --every 4`` (the recon PNGs at the config's size,
+   trajectory.png where matplotlib imports), ``run.eval_novel_view`` on
+   the train split (rendered_rgb/ written, with imageio or Pillow) and on
+   a Replica-V2 test split written from the synthetic scene (4 poses
+   between the train poses; ``configs/replica_v2/eval_novel_view.py``
+   pointed at the Replica run; NVS PSNR finite, the nvs_*.txt written);
+   then ``run.slam`` with ``configs/replica/splatam.py`` for 4 frames with
+   ``mean_sq_dist_method="knn"`` (its time at frame 0 printed),
+   ``mapping.do_ba`` at the tracking lrs, Inria densification in mapping
+   (``densify_dict`` scaled to the 60 mapping iterations), wandb and,
+   where matplotlib imports, the tracking-loss figures: ATE finite, the
+   map densified at least once, a keyframe pose moved by BA, one figure
+   per binning segment.
 
 The last lines are a JSON line of per-kernel numbers (all eleven kernels;
 P1's also carries its per-stage ms) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -1892,9 +1915,10 @@ def run_cli(tag, exp, config, dev):
         fail(f"slam_cli {tag}: the evaluation failed")
     c = state.counts
     iters = c["tracking_iters"] + c["mapping_iters"]
+    # a tracking-loss figure renders twice: its loss and its images
     expect = expected_launches(
-        state.layout, iters + c["densify_renders"] + c["progress_renders"],
-        iters)
+        state.layout, iters + c["densify_renders"] + c["progress_renders"]
+        + 2 * c["tracking_figures"], iters)
     # the eval's renders: the config's raster layout (split by default)
     expect_eval = expected_launches(
         RasterConfig(**config.get("raster", {})).layout, results["frames"], 0)
@@ -2011,6 +2035,351 @@ def phase_slam_cli(dev, frames=CLI_FRAMES):
     return results, total
 
 
+# ---------------------------------------------------------------------------
+# [clis]: the other CLIs, and the SLAM keys, on [slam_cli]'s data
+# ---------------------------------------------------------------------------
+
+def importable(module):
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def counted_cli(tag, fn, layout, renders, iters, total):
+    """Run ``fn()`` (a CLI's ``main``) with every kernel's count set to 0
+    before and read after, and hold them to ``renders(result)`` forward
+    renders, ``iters`` of them differentiated, in ``layout``; the counts
+    are added to ``total``. Returns (the result, wall seconds)."""
+    reset_launches()
+    t0 = time.time()
+    out = fn()
+    wall = time.time() - t0
+    launches = read_launches()
+    check_launches(f"clis {tag}", launches,
+                   expected_launches(layout, renders(out), iters))
+    for k in KERNEL_NAMES:
+        total[k] += launches[k]
+    return out, wall
+
+
+def write_replica_v2(root, dev, frames=CLI_FRAMES, size=(1200, 680),
+                     tests=4):
+    """The synthetic scene in Replica-V2's layout under ``root``/room_0:
+    imap/00 the train split (frames 0..``frames``-1, the [slam_cli]
+    sequence's poses), imap/01 the test split (``tests`` poses halfway
+    between train poses: the sequence at half speed, odd frames), as
+    rgb/rgb_%d.png and depth/depth_%d.png (x 1000 as uint16) with
+    traj_w_c.txt; and its dataset YAML."""
+    from splatam_torch.data.synthetic import SyntheticDataset
+
+    train = SyntheticDataset(num_frames=frames, width=size[0], height=size[1],
+                             seed=0, device=dev)
+    half = SyntheticDataset(num_frames=2 * tests, width=size[0],
+                            height=size[1], seed=0, motion_scale=0.5,
+                            device=dev)
+    splits = {"00": [train[t] for t in range(frames)],
+              "01": [half[2 * i + 1] for i in range(tests)]}
+    for split, items in splits.items():
+        folder = os.path.join(root, "room_0", "imap", split)
+        for sub in ("rgb", "depth"):
+            os.makedirs(os.path.join(folder, sub), exist_ok=True)
+        lines = []
+        for i, (color, depth, _, pose) in enumerate(items):
+            write_png(os.path.join(folder, "rgb", f"rgb_{i}.png"),
+                      np.round(color).astype(np.uint8))
+            write_png(os.path.join(folder, "depth", f"depth_{i}.png"),
+                      np.round(depth[..., 0] * 1000.0).astype(np.uint16))
+            lines.append(" ".join(repr(float(v)) for v in pose.ravel()))
+        with open(os.path.join(folder, "traj_w_c.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    yaml = os.path.join(root, "replica_v2.yaml")
+    _yaml(yaml, "replicav2", train.k, *size, 1000.0, 0)
+    return yaml
+
+
+def phase_clis(dev, frames=CLI_FRAMES, gs_iters=200, post_iters=100,
+               slam_frames=4, size=(1200, 680)):
+    """The other CLIs' ``main``s on [slam_cli]'s Replica sequence and map,
+    each with the shipped config but for the printed cuts, then
+    ``run.slam`` with the SLAM keys the shipped configs leave off."""
+    import shutil
+
+    import torch
+
+    from splatam_torch.core.params import num_gaussians
+    from splatam_torch.eval.runner import eval_sequence
+    from splatam_torch.render.binning import RasterConfig
+    from splatam_torch.run import (eval_novel_view, export_ply,
+                                   gaussian_splatting, post_opt, viz)
+    from splatam_torch.run.common import build_dataset
+    from splatam_torch.utils.checkpoint import load_params
+    from splatam_torch.utils.ply import load_ply
+
+    has = {m: importable(m) for m in ("matplotlib", "open3d", "wandb")}
+    log("[clis] imports: " + ", ".join(f"{m} {'yes' if ok else 'no'}"
+                                      for m, ok in has.items()))
+    # no wandb run may reach the network: a present wandb runs disabled
+    os.environ["WANDB_MODE"] = "disabled"
+    src = os.path.join(ROOT, "build", "slam_cli")
+    replica = os.path.join(src, "data", "Replica")
+    replica_exp = os.path.join(src, "replica_splatam.py")
+    root = os.path.join(ROOT, "build", "clis")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data = [(("data", "basedir"), replica),
+            (("data", "gradslam_data_cfg"), os.path.join(replica, "replica.yaml"))]
+    replica_cfg = load_config("splatam.py")
+    slam_run = os.path.join(src, "experiments", "replica_splatam",
+                            replica_cfg["run_name"])
+    results, total = {}, {k: 0 for k in KERNEL_NAMES}
+
+    def layout_of(config):
+        return RasterConfig(**config.get("raster", {})).layout
+
+    # -- gaussian_splatting: 8 frames, 200 iterations, the densification
+    # schedule scaled as [offline] scales it
+    log("[clis] gaussian_splatting (configs/replica/gaussian_splatting.py):")
+    exp = os.path.join(root, "gaussian_splatting.py")
+    overrides = data + [(("workdir",), os.path.join(root, "gs")),
+                        (("data", "num_frames"), frames),
+                        (("train", "num_iters_mapping"), gs_iters)]
+    for key, value in (("start_after", gs_iters // 5),
+                       ("densify_every", gs_iters // 5),
+                       ("stop_after", 4 * gs_iters // 5),
+                       ("remove_big_after", 3 * gs_iters // 5)):
+        overrides.append((("train", "densify_dict", key), value))
+    config = experiment_file(exp, os.path.join(ROOT, "configs", "replica",
+                                               "gaussian_splatting.py"),
+                             overrides)
+    (state, res), wall = counted_cli(
+        "gaussian_splatting",
+        lambda: gaussian_splatting.main([exp, "--device", str(dev)]),
+        layout_of(config),
+        lambda out: gs_iters + out[0].counts["densify_renders"]
+        + out[1]["frames"], gs_iters, total)
+    run = os.path.join(root, "gs", config["run_name"])
+    for f in ("params.npz", "splat.ply", os.path.join("eval", "psnr.txt")):
+        if not os.path.exists(os.path.join(run, f)):
+            fail(f"clis gaussian_splatting: {f} was not written")
+    if not math.isfinite(res["psnr"]):
+        fail(f"clis gaussian_splatting: PSNR {res['psnr']}")
+    results["gaussian_splatting"] = dict(
+        ms_per_iter=1e3 * state.timing["offline_iter"][0], s=wall,
+        psnr=res["psnr"], eval_frames=res["frames"],
+        gaussians=num_gaussians(state.params))
+    log(f"[clis] gaussian_splatting: {json.dumps(results['gaussian_splatting'])}")
+    del state
+    torch.cuda.empty_cache()
+
+    # -- post_opt: from the Replica SLAM run's params.npz, 100 iterations
+    log("[clis] post_opt (configs/replica/post_splatam_opt.py):")
+    exp = os.path.join(root, "post_opt.py")
+    config = experiment_file(
+        exp, os.path.join(ROOT, "configs", "replica", "post_splatam_opt.py"),
+        data + [(("workdir",), os.path.join(root, "post")),
+                (("data", "param_ckpt_path"),
+                 os.path.join(slam_run, "params.npz")),
+                # stride 20 keeps 1 of the sequence's 8 frames: take them all
+                (("data", "stride"), 1), (("data", "num_frames"), frames),
+                (("train", "num_iters_mapping"), post_iters)])
+    dataset = build_dataset(config)
+    loaded, _, _ = load_params(os.path.join(slam_run, "params.npz"),
+                               device=dev)
+    before = eval_sequence(
+        dataset, loaded, frames, os.path.join(root, "post_loaded"),
+        sil_thres=config["train"]["sil_thres"],
+        mapping_iters=config["train"]["num_iters_mapping"],
+        add_new_gaussians=True, eval_every=config.get("eval_every", 1),
+        raster_cfg=RasterConfig(**config["raster"]), device=dev)
+    del loaded, dataset
+    (state, res), wall = counted_cli(
+        "post_opt", lambda: post_opt.main([exp, "--device", str(dev)]),
+        layout_of(config),
+        lambda out: post_iters + out[0].counts["densify_renders"]
+        + out[1]["frames"], post_iters, total)
+    results["post_opt"] = dict(
+        ms_per_iter=1e3 * state.timing["offline_iter"][0], s=wall,
+        psnr_loaded=before["psnr"], psnr=res["psnr"])
+    log(f"[clis] post_opt: {json.dumps(results['post_opt'])}")
+    if not (math.isfinite(res["psnr"]) and res["psnr"] >= before["psnr"] - 0.5):
+        fail("clis post_opt: the refinement lost more than 0.5 dB of PSNR")
+    del state
+    torch.cuda.empty_cache()
+
+    # -- export_ply on the Replica SLAM run: the arrays of its splat.ply
+    log("[clis] export_ply on the [slam_cli] Replica run:")
+    ply = os.path.join(slam_run, "splat.ply")
+    written = load_ply(ply)
+    path, _ = counted_cli(
+        "export_ply", lambda: export_ply.main([replica_exp, "--device",
+                                               str(dev)]),
+        "aligned", lambda out: 0, 0, total)
+    again = load_ply(path)
+    if path != ply or written.keys() != again.keys() or any(
+            not np.array_equal(written[k], again[k]) for k in written):
+        fail("clis export_ply: the PLY does not read back to the SLAM "
+             "CLI's splat.ply")
+    log(f"[clis] export_ply: {len(again['means3D'])} Gaussians, the same "
+        "arrays as the SLAM CLI's splat.ply")
+
+    # -- viz --every 4 on the Replica SLAM run
+    log("[clis] viz --every 4 on the [slam_cli] Replica run:")
+    (pngs, plot), wall = counted_cli(
+        "viz", lambda: viz.main([replica_exp, "--every", "4", "--device",
+                                 str(dev)]),
+        layout_of(replica_cfg), lambda out: len(out[0]), 0, total)
+    from PIL import Image
+
+    sizes = {Image.open(p).size for p in pngs}
+    if len(pngs) != (frames + 3) // 4 or sizes != {tuple(size)}:
+        fail(f"clis viz: {len(pngs)} PNGs of sizes {sizes}")
+    if has["matplotlib"] != (plot is not None and os.path.exists(plot)):
+        fail(f"clis viz: trajectory plot {plot} with matplotlib "
+             f"{'present' if has['matplotlib'] else 'absent'}")
+    log(f"[clis] viz: {len(pngs)} PNGs at {size[0]}x{size[1]} in {wall:.1f} s; "
+        + ("trajectory.png written" if plot else
+           "matplotlib does not import: no trajectory plot"))
+    results["viz"] = dict(pngs=len(pngs), s=wall, plot=plot is not None)
+
+    # -- eval_novel_view, train split: eval_sequence with the frames saved
+    log("[clis] eval_novel_view, train split (configs/replica/splatam.py):")
+    res, wall = counted_cli(
+        "eval_novel_view train", lambda: eval_novel_view.main(
+            [replica_exp, "--device", str(dev)]),
+        layout_of(replica_cfg), lambda out: out["frames"], 0, total)
+    saved = sorted(os.listdir(os.path.join(slam_run, "eval_train",
+                                           "rendered_rgb")))
+    if len(saved) != res["frames"] or not math.isfinite(res["psnr"]):
+        fail(f"clis eval_novel_view train: {saved}, PSNR {res['psnr']}")
+    results["eval_train"] = dict(psnr=res["psnr"], frames=res["frames"],
+                                 s=wall)
+    log(f"[clis] eval_novel_view train: {json.dumps(results['eval_train'])}; "
+        f"rendered_rgb/ holds {len(saved)} PNGs")
+
+    # -- eval_novel_view, test split: Replica-V2 layout, the Replica run
+    log("[clis] eval_novel_view, test split "
+        "(configs/replica_v2/eval_novel_view.py):")
+    t0 = time.time()
+    v2 = os.path.join(root, "data", "Replica_V2")
+    v2_yaml = write_replica_v2(v2, dev, frames, size)
+    log(f"[clis] Replica-V2 sequence written in {time.time() - t0:.1f} s")
+    exp = os.path.join(root, "eval_novel_view.py")
+    config = experiment_file(
+        exp, os.path.join(ROOT, "configs", "replica_v2", "eval_novel_view.py"),
+        [(("data", "basedir"), v2), (("data", "gradslam_data_cfg"), v2_yaml),
+         (("workdir",), os.path.dirname(slam_run)),
+         (("run_name",), replica_cfg["run_name"])])
+    nvs_dir = os.path.join(slam_run, "eval_nvs")
+    res, wall = counted_cli(
+        "eval_novel_view test", lambda: eval_novel_view.main(
+            [exp, "--device", str(dev)]),
+        layout_of(config), lambda out: len(np.loadtxt(
+            os.path.join(nvs_dir, "nvs_psnr.txt"), ndmin=1)), 0, total)
+    for name in ("psnr", "rmse", "l1", "ssim", "lpips", "valid"):
+        if not os.path.exists(os.path.join(nvs_dir, f"nvs_{name}.txt")):
+            fail(f"clis eval_novel_view test: nvs_{name}.txt was not written")
+    if not math.isfinite(res["psnr"]):
+        fail(f"clis eval_novel_view test: NVS PSNR {res['psnr']}")
+    results["nvs"] = dict(psnr=res["psnr"], ms_ssim=res["ms_ssim"],
+                          valid_frac=res["valid_frac"], s=wall, views=len(
+                              np.loadtxt(os.path.join(nvs_dir, "nvs_psnr.txt"),
+                                         ndmin=1)))
+    log(f"[clis] eval_novel_view test: {json.dumps(results['nvs'])}")
+    torch.cuda.empty_cache()
+
+    # -- run.slam with the SLAM keys the shipped configs leave off
+    log(f"[clis] run.slam (configs/replica/splatam.py, {slam_frames} frames) "
+        "with knn, do_ba, Inria densification in mapping, wandb and the "
+        "tracking-loss figures:")
+    from splatam_torch.slam import initialize, pipeline
+
+    map_iters = replica_cfg["mapping"]["num_iters"]
+    track_lrs = replica_cfg["tracking"]["lrs"]
+    overrides = data + [
+        (("workdir",), os.path.join(root, "slam_keys")),
+        (("data", "num_frames"), slam_frames),
+        (("mean_sq_dist_method",), "knn"),
+        (("mapping", "do_ba"), True),
+        (("mapping", "lrs", "cam_unnorm_rots"), track_lrs["cam_unnorm_rots"]),
+        (("mapping", "lrs", "cam_trans"), track_lrs["cam_trans"]),
+        (("mapping", "use_gaussian_splatting_densification"), True),
+        (("use_wandb",), True),
+        (("tracking", "visualize_tracking_loss"), has["matplotlib"])]
+    for key, value in (("start_after", map_iters // 5),
+                       ("densify_every", map_iters // 5),
+                       ("stop_after", 4 * map_iters // 5),
+                       ("remove_big_after", 3 * map_iters // 5)):
+        overrides.append((("mapping", "densify_dict", key), value))
+    exp = os.path.join(root, "slam_keys.py")
+    config = experiment_file(exp, os.path.join(ROOT, "configs", "replica",
+                                               "splatam.py"), overrides)
+    knn_s, ba = [], []
+    msd, map_step = initialize.mean_squared_knn_distance, pipeline.map_step
+
+    def timed_knn(points, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = msd(points, *args, **kwargs)
+        torch.cuda.synchronize()
+        knn_s.append((len(points), time.time() - t))
+        return out
+
+    def watched_map_step(params, opt, rot, tran, *args, **kwargs):
+        res = map_step(params, opt, rot, tran, *args, **kwargs)
+        ba.append(float(torch.maximum((res.cam_rot - rot).abs().max(),
+                                      (res.cam_tran - tran).abs().max())))
+        return res
+
+    initialize.mean_squared_knn_distance = timed_knn
+    pipeline.map_step = watched_map_step
+    try:
+        state, res, launches, wall = run_cli("slam_keys", exp, config, dev)
+    finally:
+        initialize.mean_squared_knn_distance = msd
+        pipeline.map_step = map_step
+    for k in KERNEL_NAMES:
+        total[k] += launches[k]
+    c = state.counts
+    if len(knn_s) != 1:
+        fail(f"clis slam_keys: knn ran {len(knn_s)} times, not once at frame 0")
+    if not (ba and max(ba) > 0):
+        fail("clis slam_keys: bundle adjustment moved no keyframe pose")
+    figures = []
+    for d, _, files in os.walk(os.path.join(root, "slam_keys", "plots")):
+        figures += [os.path.join(os.path.basename(d), f) for f in files]
+    r = dict(
+        s_per_frame=(wall - res["eval_s"]) / slam_frames,
+        ate_mm=1e3 * res["ate_rmse"], psnr=res["psnr"],
+        knn_points=knn_s[0][0], knn_ms=1e3 * knn_s[0][1],
+        ba_steps=len(ba), ba_max_move=max(ba), gs_densified=c["gs_densified"],
+        gaussians=num_gaussians(state.params),
+        tracking_figures=c["tracking_figures"], figure_files=len(figures),
+        wandb=state.log_fn is not None)
+    results["slam_keys"] = r
+    log(f"[clis] run.slam with the keys: {json.dumps(r)}")
+    log(f"[clis] run.slam: mean ms per iteration tracking "
+        f"{1e3 * np.mean(state.timing['tracking_iter']):.2f}, mapping "
+        f"{1e3 * np.mean(state.timing['mapping_iter']):.2f}")
+    if not math.isfinite(res["ate_rmse"]):
+        fail(f"clis slam_keys: ATE {res['ate_rmse']}")
+    if c["gs_densified"] < 1:
+        fail("clis slam_keys: Inria densification never grew the map")
+    # one figure per binning segment of each tracked frame (the JAX rule)
+    track = config["tracking"]
+    rebin = track.get("rebin_every", 10)
+    per = (-(-track["num_iters"] // rebin)
+           if rebin and not track.get("fixed_binning", False) else 1)
+    want = per * (slam_frames - 1) if has["matplotlib"] else 0
+    if c["tracking_figures"] != want or len(figures) != want:
+        fail(f"clis slam_keys: {c['tracking_figures']} tracking figures, "
+             f"{len(figures)} files, not {want}")
+    if any(state.nonfinite.values()):
+        fail(f"clis slam_keys: non-finite iterations {state.nonfinite}")
+    del state
+    torch.cuda.empty_cache()
+    return results, total
+
+
 PALLAS = "splatam_tpu/render/pallas_raster.py"
 SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
     "B1": ("raster_fwd", "raster_fwd.cu", f"{PALLAS}:567"),
@@ -2028,8 +2397,9 @@ SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
 
 
 def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
-          offline=None, post=None, realtime=None, probes=None, slam_cli=None):
-    """Phases 2-9 on ``dev``. Returns (the kernels' JSON entries, a
+          offline=None, post=None, realtime=None, probes=None, slam_cli=None,
+          clis=None):
+    """Phases 2-11 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
 
@@ -2076,11 +2446,15 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     t = time.time()
     cli, cli_launches = phase_slam_cli(dev, **(slam_cli or {}))
     log(f"[slam_cli] phase in {time.time() - t:.1f} s")
+    t = time.time()
+    others, others_launches = phase_clis(dev, **(clis or {}))
+    log(f"[clis] phase in {time.time() - t:.1f} s")
     # the main paths' launches: the bench, the probes, SLAM, offline
-    # training, refinement, realtime, the SLAM CLI
+    # training, refinement, realtime, the SLAM CLI, the other CLIs
     for k in KERNEL_NAMES:
         launches[k] += (bench_launches[k] + probe_launches[k] + off_launches[k]
-                        + post_launches[k] + rt_launches[k] + cli_launches[k])
+                        + post_launches[k] + rt_launches[k] + cli_launches[k]
+                        + others_launches[k])
     for k, e in probe_entries.items():
         times[k], bounds[k] = (e["ms"], e["plain_ms"]), e["bound"]
 
@@ -2110,7 +2484,13 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
         "; SLAM CLI " + ", ".join(
             f"{tag} {r['s_per_frame']:.2f} s/frame ATE {r['ate_mm']:.2f} mm "
             f"PSNR {r['psnr']:.2f} dB eval {r['eval_ms_per_frame']:.1f} ms/frame"
-            for tag, r in cli.items() if "s_per_frame" in r))
+            for tag, r in cli.items() if "s_per_frame" in r)
+        + f"; CLIs: gaussian_splatting "
+        f"{others['gaussian_splatting']['ms_per_iter']:.2f} ms/iteration, "
+        f"post_opt {others['post_opt']['ms_per_iter']:.2f} ms/iteration, NVS "
+        f"PSNR {others['nvs']['psnr']:.2f} dB, SLAM with the keys "
+        f"{others['slam_keys']['s_per_frame']:.2f} s/frame (knn "
+        f"{others['slam_keys']['knn_ms']:.1f} ms)")
     return kernels, summary
 
 

@@ -158,6 +158,7 @@ def slam_loss(
     cfg: RasterConfig,
     *,
     tracking: bool,
+    do_ba: bool = False,
     loss_w_im: float,
     loss_w_depth: float,
     use_sil_for_loss: bool,
@@ -170,14 +171,16 @@ def slam_loss(
 ) -> LossOutput:
     """`get_loss` parity. tracking=True: pose-only gradients, per-pixel sums
     over the silhouette mask. tracking=False (mapping): Gaussian-only
-    gradients, mean L1 depth + 0.8 L1 / 0.2 DSSIM RGB.
+    gradients, mean L1 depth + 0.8 L1 / 0.2 DSSIM RGB. ``do_ba`` (bundle
+    adjustment, `scripts/splatam.py:232-238`) lets the mapping loss carry
+    camera-pose gradients too.
 
     ``median_scale`` / ``median_thr`` shape the outlier-depth mask:
     error < (median_scale / 5) * median(error), the median capped at
     ``median_thr`` (then the scale is 10)."""
     pts, rots, scales = _frame_inputs(
         params, cam_rot, cam_tran, gaussians_grad=not tracking,
-        camera_grad=tracking,
+        camera_grad=tracking or do_ba,
     )
     feats = torch.cat(
         [params["rgb_colors"], depth_silhouette_colors(pts, cam.viewmatrix)],

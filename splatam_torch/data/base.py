@@ -16,7 +16,8 @@ It needs no OpenCV unless a config sets ``distortion``:
 * Image files decode with imageio, as the JAX package does, or else with
   Pillow, imageio's own backend for JPEG and PNG (the same arrays); the
   import picks one (``IMREAD_DECODER``), and without either a decode
-  raises.
+  raises. ``imwrite``, which the evaluation and the viewers write their
+  PNGs with, uses the same library.
 * ``RGBDDataset`` tries the native decoder first for each frame (decode and
   resize in C++ with the GIL released), as the JAX loader does.
 """
@@ -146,6 +147,24 @@ def _imread(path: str) -> np.ndarray:
         with Image.open(path) as img:
             return np.asarray(img)
     raise ImportError(f"cannot decode {path}: neither imageio nor Pillow is "
+                      "installed")
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write ``img`` (uint8 (H, W, 3) RGB or uint16 (H, W) gray) to the
+    image file ``path`` names, with ``IMREAD_DECODER``'s library: the files
+    hold the same pixels either way."""
+    if IMREAD_DECODER == "imageio":
+        import imageio.v2 as imageio
+
+        imageio.imwrite(path, img)
+        return
+    if IMREAD_DECODER == "PIL":
+        from PIL import Image
+
+        Image.fromarray(img).save(path)
+        return
+    raise ImportError(f"cannot write {path}: neither imageio nor Pillow is "
                       "installed")
 
 

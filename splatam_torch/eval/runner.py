@@ -17,6 +17,7 @@ import torch
 
 from splatam_torch.core.losses import render_for_loss
 from splatam_torch.core.params import GAUSSIAN_KEYS, get_pose
+from splatam_torch.data.base import imwrite
 from splatam_torch.device import resolve_device
 from splatam_torch.eval.ate import evaluate_ate, trajectory_from_params
 from splatam_torch.eval.lpips import load_lpips
@@ -66,18 +67,18 @@ def _gt_frame(color, depth, dev):
 
 
 def _save_frames(eval_dir, time_idx, im, rastered_depth):
-    import imageio.v2 as imageio
-
+    """The rendered color as an 8-bit RGB PNG and the depth, scaled to its
+    largest value, as a 16-bit PNG (with imageio, else Pillow)."""
     rdir = os.path.join(eval_dir, "rendered_rgb")
     os.makedirs(rdir, exist_ok=True)
-    imageio.imwrite(
+    imwrite(
         os.path.join(rdir, f"gs_{time_idx:04d}.png"),
         (np.clip(im, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8),
     )
     ddir = os.path.join(eval_dir, "rendered_depth")
     os.makedirs(ddir, exist_ok=True)
     d = rastered_depth[0]
-    imageio.imwrite(
+    imwrite(
         os.path.join(ddir, f"gs_{time_idx:04d}.png"),
         (np.clip(d / max(float(d.max()), 1e-6), 0, 1) * 65535).astype(np.uint16),
     )

@@ -13,12 +13,17 @@ import importlib.util
 import os
 import random
 import shutil
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from splatam_torch.data import get_dataset, load_dataset_config
+from splatam_torch.eval.runner import eval_sequence
+from splatam_torch.render.binning import RasterConfig
+from splatam_torch.utils.checkpoint import save_params
+from splatam_torch.utils.ply import save_ply_from_params
 
 
 def seed_everything(seed: int = 42) -> None:
@@ -109,3 +114,31 @@ def standard_argparser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
     return p
+
+
+def evaluate_and_save(config: Dict, dataset, state, results_dir: str,
+                      device) -> Dict[str, float]:
+    """The offline-training CLIs' last steps (`scripts/
+    gaussian_splatting.py`, `post_splatam_opt.py`): evaluate ``state``'s map
+    on ``dataset`` into ``results_dir/eval``, then save ``params.npz`` and
+    ``splat.ply`` there. Returns the evaluation's results, with ``eval_s``,
+    its wall time."""
+    num_frames = config["data"].get("num_frames", -1)
+    if num_frames == -1:
+        num_frames = len(dataset)
+    t0 = time.time()
+    results = eval_sequence(
+        dataset, state.params, num_frames, os.path.join(results_dir, "eval"),
+        sil_thres=config["train"]["sil_thres"],
+        mapping_iters=config["train"]["num_iters_mapping"],
+        add_new_gaussians=True, eval_every=config.get("eval_every", 1),
+        raster_cfg=RasterConfig(**config.get("raster", {})), device=device,
+    )
+    results["eval_s"] = time.time() - t0
+    save_params(
+        state.params, state.variables, results_dir,
+        intrinsics=state.intrinsics, first_w2c=state.first_w2c,
+        gt_w2c_all_frames=state.gt_w2c_all,
+    )
+    save_ply_from_params(os.path.join(results_dir, "splat.ply"), state.params)
+    return results

@@ -2,14 +2,18 @@
 
 Counterpart of ``splatam_tpu/slam/initialize.py`` (`get_pointcloud` /
 `initialize_first_timestep`, `scripts/splatam.py:73-217`). Back-projection
-is host-side numpy, as in the JAX package.
+is host-side numpy, as in the JAX package; the "knn" scale rule searches
+the cloud's neighbours on the device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from splatam_torch.core.params import initialize_params
+from splatam_torch.device import resolve_device
 from splatam_torch.render.camera import setup_camera
+from splatam_torch.utils.neighbors import mean_squared_knn_distance
 
 
 def get_pointcloud(
@@ -20,14 +24,15 @@ def get_pointcloud(
     mask: np.ndarray | None = None,  # (H*W,) bool
     compute_mean_sq_dist: bool = False,
     mean_sq_dist_method: str = "projective",
+    device=None,
 ):
     """Back-project pixels to a world-frame point cloud (+ colors).
 
-    Only the "projective" scale rule, (z / f)^2, is ported so far."""
-    if compute_mean_sq_dist and mean_sq_dist_method != "projective":
-        raise ValueError(
-            f"mean_sq_dist_method {mean_sq_dist_method!r} is not ported"
-        )
+    With ``compute_mean_sq_dist``, also each point's squared scale:
+    "projective", (z / f)^2, or "knn", the mean squared distance to its 3
+    nearest neighbours in the (masked) cloud, searched on ``device``."""
+    if compute_mean_sq_dist and mean_sq_dist_method not in ("projective", "knn"):
+        raise ValueError(f"Unknown mean_sq_dist_method {mean_sq_dist_method}")
     h, w = color.shape[1], color.shape[2]
     cx, cy = intrinsics[0][2], intrinsics[1][2]
     fx, fy = intrinsics[0][0], intrinsics[1][1]
@@ -45,13 +50,17 @@ def get_pointcloud(
     point_cld = np.concatenate([pts, cols], axis=-1).astype(np.float32)
 
     mean3_sq_dist = None
-    if compute_mean_sq_dist:
+    if compute_mean_sq_dist and mean_sq_dist_method == "projective":
         mean3_sq_dist = ((z / ((fx + fy) / 2)) ** 2).astype(np.float32)
     if mask is not None:
         point_cld = point_cld[mask]
         if mean3_sq_dist is not None:
             mean3_sq_dist = mean3_sq_dist[mask]
     if compute_mean_sq_dist:
+        if mean_sq_dist_method == "knn":
+            mean3_sq_dist = mean_squared_knn_distance(
+                torch.as_tensor(point_cld[:, :3], device=resolve_device(device))
+            ).cpu().numpy()
         return point_cld, mean3_sq_dist
     return point_cld
 
@@ -78,7 +87,7 @@ def initialize_first_timestep(
     mask = depth_chw[0].reshape(-1) > 0
     pt_cld, mean3_sq_dist = get_pointcloud(
         color_chw, depth_chw, k, w2c, mask=mask, compute_mean_sq_dist=True,
-        mean_sq_dist_method=mean_sq_dist_method,
+        mean_sq_dist_method=mean_sq_dist_method, device=cam.device,
     )
     params, variables = initialize_params(
         pt_cld, num_frames, mean3_sq_dist, gaussian_distribution,

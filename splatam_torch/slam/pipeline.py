@@ -5,14 +5,14 @@ Counterpart of ``splatam_tpu/slam/pipeline.py`` (`rgbd_slam`,
 dicts run in both: separate tracking and densification resolutions, the
 depth-loss-threshold doubling of the tracking iterations, ``fixed_binning``,
 ``report_global_progress_every``, checkpoint resume and the periodic save,
-and ``frame_callback``. A config whose ``raster`` does not set ``layout``
-gets it from frame 0's instance density (``resolve_auto_layout``), as in
-JAX. ``map_capacity`` (the JAX package's pre-sized map capacity) is
-accepted and ignored: the port's map grows. Not ported yet (ROADMAP A3):
-wandb, bundle adjustment (``mapping.do_ba``), Inria densification inside
-mapping (``mapping.use_gaussian_splatting_densification``) and the
-tracking-loss figures (``tracking.visualize_tracking_loss``); a config that
-turns one on raises before frame 0.
+``frame_callback``, wandb logging (``use_wandb``, where wandb imports),
+bundle adjustment in mapping (``mapping.do_ba``), Inria densification
+inside mapping (``mapping.use_gaussian_splatting_densification``) and the
+tracking-loss figures (``tracking.visualize_tracking_loss``). A config
+whose ``raster`` does not set ``layout`` gets it from frame 0's instance
+density (``resolve_auto_layout``), as in JAX. ``map_capacity`` (the JAX
+package's pre-sized map capacity) is accepted and ignored: the port's map
+grows.
 """
 from __future__ import annotations
 
@@ -24,7 +24,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from splatam_torch.core.losses import compute_binned, count_instances
+from splatam_torch.core.losses import (
+    compute_binned,
+    count_instances,
+    render_for_loss,
+    slam_loss,
+)
 from splatam_torch.core.params import (
     GAUSSIAN_KEYS,
     Params,
@@ -41,6 +46,7 @@ from splatam_torch.render.camera import setup_camera
 from splatam_torch.render.geometry import grid_dims
 from splatam_torch.slam.densify import add_new_gaussians
 from splatam_torch.slam.initialize import initialize_first_timestep
+from splatam_torch.slam.inria_densify import accumulate_mean2d_gradient, densify
 from splatam_torch.slam.keyframes import keyframe_selection_overlap
 from splatam_torch.slam.mapping import (
     init_mapping_optimizer,
@@ -49,6 +55,7 @@ from splatam_torch.slam.mapping import (
 )
 from splatam_torch.slam.tracking import initialize_camera_pose, track_frame
 from splatam_torch.utils.checkpoint import load_params, save_params_ckpt
+from splatam_torch.viz.plots import save_tracking_loss_viz
 
 
 def as_frame(color, depth, device):
@@ -90,36 +97,16 @@ class SlamState:
             "mapping_iter": [], "mapping_frame": [],
             "frame": [],  # whole frames (the realtime driver)
         }
-        # iterations run and renders made, for launch accounting
+        # iterations run and renders made, for launch accounting; each
+        # tracking figure renders twice (its loss and its images);
+        # gs_densified: Inria densification steps that grew the map
         self.counts = {"tracking_iters": 0, "mapping_iters": 0,
                        "densify_renders": 0, "progress_renders": 0,
-                       "tracking_doubled": 0}
+                       "tracking_doubled": 0, "tracking_figures": 0,
+                       "gs_densified": 0}
         self.nonfinite = {"tracking": 0, "mapping": 0}
         self.layout = None  # the raster layout the run used
-
-
-# (section, key, the value the port runs): a config that sets one of these
-# keys to another value asks for what the port does not run yet
-UNPORTED_KEYS = (
-    (None, "use_wandb", False),
-    ("mapping", "do_ba", False),
-    ("mapping", "use_gaussian_splatting_densification", False),
-    ("tracking", "visualize_tracking_loss", False),
-)
-
-
-def check_ported(config: Dict) -> None:
-    """Raise ValueError for a config key set to a value the port does not
-    run yet."""
-    for section, key, ported in UNPORTED_KEYS:
-        d = config if section is None else config.get(section, {})
-        value = d.get(key, ported)
-        if value != ported:
-            name = key if section is None else f"{section}.{key}"
-            raise ValueError(
-                f"config key {name}={value!r} is not ported to splatam_torch "
-                f"yet (ROADMAP A3); set it to {ported!r}"
-            )
+        self.log_fn = None  # wandb's run.log with use_wandb
 
 
 def _sync(device: torch.device) -> None:
@@ -170,7 +157,6 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
     ``frame_callback(time_idx, state)`` runs before each frame. Runs on
     ``device`` (None means CUDA; raises when CUDA is absent)."""
     dev = resolve_device(device)
-    check_ported(config)
     cfg_track = config["tracking"]
     cfg_map = config["mapping"]
     raster_cfg = RasterConfig(**config.get("raster", {}))
@@ -179,6 +165,13 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
     if num_frames == -1:
         num_frames = len(dataset)
     state = SlamState()
+    if config.get("use_wandb", False):
+        try:
+            import wandb
+        except ImportError:
+            print("[warn] use_wandb=True but wandb is not installed; skipping")
+        else:
+            state.log_fn = wandb.init(**config.get("wandb", {})).log
 
     color, depth, intrinsics, pose = dataset[0]
     params, variables, k3, first_w2c, cam, scene_radius = initialize_first_timestep(
@@ -208,7 +201,12 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
         track_cam, _ = _camera_of(tracking_dataset, first_w2c, dev)
     if densify_dataset is not None:
         densify_cam, densify_k3 = _camera_of(densify_dataset, first_w2c, dev)
-    gauss_lrs = {k: v for k, v in cfg_map["lrs"].items() if k in GAUSSIAN_KEYS}
+    # bundle adjustment (`scripts/splatam.py:232-238`): mapping also steps
+    # the sampled keyframe's pose, with the mapping lrs' cam_* rates
+    do_ba = bool(cfg_map.get("do_ba", False))
+    use_gs_densify = cfg_map.get("use_gaussian_splatting_densification", False)
+    viz_track = cfg_track.get("visualize_tracking_loss", False)
+    plot_dir = os.path.join(config.get("workdir", "."), "plots")
     nonfinite_track = torch.zeros((), dtype=torch.int32, device=dev)
     nonfinite_map = torch.zeros((), dtype=torch.int32, device=dev)
     fixed_binning = cfg_track.get("fixed_binning", False)
@@ -245,6 +243,35 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
                 n_iters = cfg_track["num_iters"]
                 gauss = {k: params[k] for k in GAUSSIAN_KEYS}
 
+                @torch.no_grad()
+                def draw(done, rot, tran):
+                    """The tracking-loss figure at the pose after ``done``
+                    iterations (`scripts/splatam.py:299-344`)."""
+                    out = slam_loss(
+                        gauss, rot, tran, track_im, track_depth, track_cam,
+                        raster_cfg, tracking=True,
+                        loss_w_im=cfg_track["loss_weights"]["im"],
+                        loss_w_depth=cfg_track["loss_weights"]["depth"],
+                        use_sil_for_loss=cfg_track["use_sil_for_loss"],
+                        sil_thres=cfg_track["sil_thres"],
+                        ignore_outlier_depth_loss=cfg_track["ignore_outlier_depth_loss"],
+                    )
+                    img = render_for_loss(
+                        gauss, rot, tran, track_cam, raster_cfg,
+                        gaussians_grad=False, camera_grad=False)[0].color
+                    save_tracking_loss_viz(
+                        img[:3].cpu().numpy(), img[3:4].cpu().numpy(),
+                        img[4].cpu().numpy(), track_im.cpu().numpy(),
+                        track_depth.cpu().numpy(),
+                        {k: float(v) for k, v in out.losses.items()},
+                        plot_dir, done,
+                        use_sil_for_loss=cfg_track["use_sil_for_loss"],
+                        sil_thres=cfg_track["sil_thres"],
+                        ignore_outlier_depth_loss=cfg_track["ignore_outlier_depth_loss"],
+                        time_idx=time_idx,
+                    )
+                    state.counts["tracking_figures"] += 1
+
                 def run_track(resume=None):
                     return track_frame(
                         gauss, rot0, tran0, track_im, track_depth, track_cam,
@@ -258,6 +285,7 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
                         lr_tran=cfg_track["lrs"]["cam_trans"],
                         rebin_every=cfg_track.get("rebin_every", 10),
                         fixed_binning=fixed_binning, resume=resume,
+                        on_segment=draw if viz_track else None,
                     )
 
                 res = run_track()
@@ -290,6 +318,7 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
                 params, frame_im, frame_depth, cam, raster_cfg, time_idx,
                 cfg_track["sil_thres"], tracking=True,
                 gt_w2c_list=state.gt_w2c_all, first_w2c=state.first_w2c,
+                log_fn=state.log_fn,
             )
             state.counts["progress_renders"] += 1
             if progress:
@@ -331,6 +360,10 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
             opt_state = init_mapping_optimizer(params)
             # keyframe id -> [binning, iteration it was made, latest sat depth]
             binned_cache: Dict[int, list] = {}
+            # one pose Adam state per keyframe and phase (the reference
+            # builds one optimizer over the whole trajectory per phase, and
+            # a step touches only the sampled keyframe's pose)
+            pose_opts: Dict[int, object] = {}
             for it in range(cfg_map["num_iters"]):
                 kf = selected_frames[rng.integers(0, len(selected_frames))]
                 kf_rot, kf_tran = get_pose(params, kf["id"])
@@ -347,21 +380,33 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
                         binned_cache[kf["id"]] = cached
                 result = map_step(
                     params, opt_state, kf_rot, kf_tran, kf["im"], kf["depth"],
-                    cam, raster_cfg, lrs=gauss_lrs,
+                    cam, raster_cfg, lrs=cfg_map["lrs"],
                     sil_thres=cfg_map["sil_thres"],
                     use_sil_for_loss=cfg_map["use_sil_for_loss"],
                     ignore_outlier_depth_loss=cfg_map["ignore_outlier_depth_loss"],
                     loss_w_im=cfg_map["loss_weights"]["im"],
                     loss_w_depth=cfg_map["loss_weights"]["depth"],
+                    track_means2d_grad=use_gs_densify, do_ba=do_ba,
+                    pose_opt=pose_opts.get(kf["id"]),
                     binned=None if cached is None else cached[0],
                 )
                 if cached is not None:
                     cached[2] = result.sat_depth
                 nonfinite_map = nonfinite_map + result.nonfinite.int()
+                if do_ba:
+                    set_pose(params, kf["id"], result.cam_rot, result.cam_tran)
+                    pose_opts[kf["id"]] = result.pose_opt
+                    # the pose moved: this keyframe's frozen binning is stale
+                    binned_cache.pop(kf["id"], None)
                 mr = variables["max_2D_radius"]
                 variables["max_2D_radius"] = torch.where(
                     result.seen, torch.maximum(result.radius.float(), mr), mr
                 )
+                # before pruning, which takes rows away (the JAX package
+                # clears active bits and accumulates after it)
+                if use_gs_densify and it <= cfg_map["densify_dict"]["stop_after"]:
+                    variables = accumulate_mean2d_gradient(
+                        variables, result.means2d_grad_norm, result.seen)
                 if cfg_map.get("prune_gaussians", False):
                     params, variables, changed = prune_gaussians(
                         params, variables, opt_state, it,
@@ -369,6 +414,17 @@ def rgbd_slam(config: Dict, dataset, tracking_dataset=None,
                     )
                     if changed:
                         binned_cache.clear()
+                # Inria densification inside mapping (`scripts/splatam.py:
+                # 883-885`): after the step, as in the JAX package; the new
+                # Gaussians start optimizing at the next iteration
+                if use_gs_densify:
+                    n0 = num_gaussians(params)
+                    params, variables, opt_state = densify(
+                        params, variables, opt_state, it,
+                        cfg_map["densify_dict"], state.scene_radius, rng,
+                    )
+                    state.counts["gs_densified"] += num_gaussians(params) > n0
+                    binned_cache.clear()
             state.counts["mapping_iters"] += cfg_map["num_iters"]
             _sync(dev)
             if cfg_map["num_iters"] > 0:

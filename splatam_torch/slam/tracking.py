@@ -77,6 +77,7 @@ def track_frame(
     rebin_every: int = 10,
     fixed_binning: bool = False,
     resume=None,
+    on_segment=None,
 ) -> TrackResult:
     """Track one frame from the pose (``rot0``, ``tran0``).
 
@@ -86,7 +87,12 @@ def track_frame(
     once, at (``rot0``, ``tran0``), for every iteration of the call (the
     JAX ``track_frame``'s ``fixed_binning``). ``resume`` (a previous
     result's ``resume_state``) continues the same Adam run: pose, moments,
-    step count and best candidate carry over."""
+    step count and best candidate carry over. ``on_segment(done, rot,
+    tran)`` runs after the last iteration of each binning segment (every
+    ``rebin_every`` iterations and at the end; only at the end with
+    ``fixed_binning`` or ``rebin_every=0``) with the iterations done in this
+    call and the pose after them: the JAX pipeline's tracking-loss figure
+    points."""
     lrs = {"rot": lr_rot, "tran": lr_tran}
     nonfinite = torch.zeros((), dtype=torch.int32, device=rot0.device)
     if resume is None:
@@ -101,6 +107,7 @@ def track_frame(
     if opt is None:
         opt = init_adam(pose)
     binned, out = None, None
+    segment = rebin_every if rebin_every and not fixed_binning else num_iters
     if fixed_binning:
         binned = compute_binned(params, rot0.detach(), tran0.detach(), cam, cfg)
     for i in range(num_iters):
@@ -128,6 +135,9 @@ def track_frame(
             best_loss = torch.where(better, out.loss.detach(), best_loss)
             nonfinite = nonfinite + (~finite).int()
         sat = out.sat_depth
+        done = i + 1
+        if on_segment is not None and (done % segment == 0 or done == num_iters):
+            on_segment(done, pose["rot"].detach(), pose["tran"].detach())
     last = {} if out is None else {k: v.detach() for k, v in out.losses.items()}
     return TrackResult(
         best_rot=best_rot, best_tran=best_tran, best_loss=best_loss,

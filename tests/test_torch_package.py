@@ -40,6 +40,12 @@ def test_import_leaves_jax_out():
         "import splatam_torch.run.slam, splatam_torch.data\n"
         "import splatam_torch.eval.runner, splatam_torch.eval.report\n"
         "import splatam_torch.eval.lpips, splatam_torch.native\n"
+        "import splatam_torch.eval.nvs, splatam_torch.utils.neighbors\n"
+        "import splatam_torch.viz, splatam_torch.viz.plots\n"
+        "import splatam_torch.viz.geometry, splatam_torch.viz.recon\n"
+        "import splatam_torch.run.gaussian_splatting, splatam_torch.run.post_opt\n"
+        "import splatam_torch.run.eval_novel_view, splatam_torch.run.export_ply\n"
+        "import splatam_torch.run.viz\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -80,8 +86,11 @@ def _entry_points():
     from splatam_torch.bench.__main__ import main as bench_main
     from splatam_torch.bench.scene import setup as bench_setup
     from splatam_torch.data.synthetic import SyntheticDataset
+    from splatam_torch.eval.nvs import eval_nvs
     from splatam_torch.eval.runner import eval_sequence
-    from splatam_torch.run import slam
+    from splatam_torch.run import (eval_novel_view, export_ply,
+                                   gaussian_splatting, post_opt, slam, viz)
+    from splatam_torch.viz import render_trajectory
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -115,6 +124,14 @@ def _entry_points():
                              device="cpu")),
         "eval_sequence": lambda: eval_sequence(
             [], {}, 0, "eval", 0.5, 0, False),
+        "gaussian_splatting.main": lambda: gaussian_splatting.main(["c.py"]),
+        "post_opt.main": lambda: post_opt.main(["c.py"]),
+        "eval_novel_view.main": lambda: eval_novel_view.main(["c.py"]),
+        "export_ply.main": lambda: export_ply.main(["c.py"]),
+        "viz.main": lambda: viz.main(["c.py"]),
+        "eval_nvs": lambda: eval_nvs([], {}, 0, "eval", 0.5, 0, False),
+        "render_trajectory": lambda: render_trajectory(
+            {}, np.eye(3), np.eye(4), "recon", width=16, height=16),
     }
 
 
@@ -124,7 +141,9 @@ def _entry_points():
              "realtime_slam", "realtime.main", "bench.setup", "bench.main",
              "kernel_ablate.main", "vpu_probe.main", "ilp_probe.main",
              "step_overhead.main", "fwd_stages.main", "slam.main",
-             "rgbd_slam(dataset)", "eval_sequence"]
+             "rgbd_slam(dataset)", "eval_sequence", "gaussian_splatting.main",
+             "post_opt.main", "eval_novel_view.main", "export_ply.main",
+             "viz.main", "eval_nvs", "render_trajectory"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it

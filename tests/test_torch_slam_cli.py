@@ -1,9 +1,8 @@
 """The SLAM keys the shipped configs set, and the SLAM CLI on a dataset on
 disk: the port's rgbd_slam against the JAX package's with fixed binning,
 the depth-loss-threshold doubling, separate tracking and densification
-resolutions and global progress reports; the refusals of what the port
-does not run yet; ``python -m splatam_torch.run.slam`` end to end, with a
-checkpoint resume."""
+resolutions and global progress reports; ``python -m splatam_torch.run.slam``
+end to end, with a checkpoint resume."""
 import os
 
 import numpy as np
@@ -228,30 +227,6 @@ def test_fixed_binning_bins_once_per_frame(monkeypatch):
     cfg["tracking"]["fixed_binning"] = False
     rgbd_slam(cfg, frames, progress=False, device="cpu")
     assert len(calls) == 2
-
-
-class _Untouched:
-    def __len__(self):
-        return 3
-
-    def __getitem__(self, i):
-        raise AssertionError("a refused config read a frame")
-
-
-@pytest.mark.parametrize("section,key", [
-    (None, "use_wandb"), ("mapping", "do_ba"),
-    ("mapping", "use_gaussian_splatting_densification"),
-    ("tracking", "visualize_tracking_loss")])
-def test_unported_keys_raise_before_frame_0(section, key):
-    cfg = _config()
-    (cfg if section is None else cfg[section])[key] = True
-    name = key if section is None else f"{section}.{key}"
-    with pytest.raises(ValueError, match=rf"{name}=True.*ROADMAP A3"):
-        rgbd_slam(cfg, _Untouched(), progress=False, device="cpu")
-    (cfg if section is None else cfg[section])[key] = False
-    from splatam_torch.slam.pipeline import check_ported
-
-    check_ported(cfg)  # the value the port runs passes
 
 
 def _replica_scene(tmp_path):
