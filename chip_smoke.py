@@ -126,6 +126,31 @@ Phases, each of which must pass:
    where matplotlib imports, the tracking-loss figures: ATE finite, the
    map densified at least once, a keyframe pose moved by BA, one figure
    per binning segment.
+12. ``[parallel]``: the multi-device modules (``splatam_torch/parallel/``)
+   on ``bench.py``'s 200k scene at 1200x680: ``band_partition`` into 4 row
+   bands and ``grid_partition`` into 4 cells from the scene's binning
+   counts, each band and cell rendered by the per-band body one after
+   another, in both layouts, and assembled, against the unsharded render
+   (color and final T atol 1e-5, median depth moved by > 1e-4 on under
+   0.1% of pixels, gradients of a fixed cotangent within 2e-5 of scale),
+   each band's instances and forward + backward ms (CUDA events); the 4
+   shards of ``render_prim_sharded`` in this process against the unsharded
+   fused render, each shard's gradients against its slice; then a process
+   group of world size 1 (NCCL, a file store under build/) through the
+   real wrappers: ``rasterize_rows_sharded`` and ``render_prim_sharded``
+   against the unsharded renders, and ``batched_map_step`` over 4 keyframes
+   of the [slam] map (shard_axis "tiles"): its loss the keyframes' mean,
+   its Adam moments those of the mean gradient, its ms per keyframe; then
+   a gloo process group of 4 ranks sharing the card (4 processes on
+   cuda:0, a file store under build/): ``rasterize_rows_sharded`` over the
+   row bands and the grid, ``render_prim_sharded`` over 4 shards and
+   ``batched_map_step`` over a 2x2 (data, tiles) mesh, each rank held to
+   the same computation in its own process, with its own exact launches; a
+   degree-3 SH render (16 coefficients) through the kernels against the
+   plain versions, with its gradients in the coefficients and the means;
+   the dense oracle (``render/reference.py``) against B1's forward and
+   B2's gradients on the three golden scenes, and against tests/goldens.
+   Every time beside the card's name and power limit; exact launches.
 
 The last lines are a JSON line of per-kernel numbers (all eleven kernels;
 P1's also carries its per-stage ms) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -335,11 +360,23 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except FileNotFoundError:
+        return "unknown (no nvidia-smi)"
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+
+
+def synchronize(dev):
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def phase_build():
@@ -1448,18 +1485,33 @@ def phase_realtime(dev, frames=20, width=1200, height=680, mc=40,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within the block, B1's and B4's wrappers run their plain versions on
-    the tensors they are given (on the card too) and count nothing."""
+    """Within the block, the wrappers of B1, B2, B3a-d (the split forward
+    composed by ``compose_split``) and B4 run their plain versions on the
+    tensors they are given (on the card too) and count nothing."""
     from splatam_torch.render import raster
 
-    saved = raster.raster_fwd_cuda, raster.fisher_moments_cuda
-    raster.raster_fwd_cuda = (
-        lambda *a, **k: raster.raster_fwd_plain(*a, **k)[:2])
-    raster.fisher_moments_cuda = raster.fisher_moments_plain
+    def split_fwd(attrs, binned, grid_x, chunk, carry_depth=True):
+        ci, ai, carry, _ = raster.raster_split_int_fwd_plain(
+            attrs, binned, grid_x, chunk, carry_depth)
+        cp, ap, _ = raster.raster_split_tail_fwd_plain(
+            attrs, binned, carry, grid_x, chunk, carry_depth)
+        return (*raster.compose_split(binned, ci, ai, cp, ap), carry)
+
+    names = ("raster_fwd_cuda", "raster_bwd_cuda", "raster_split_fwd_cuda",
+             "raster_split_int_bwd_cuda", "raster_split_tail_bwd_cuda",
+             "fisher_moments_cuda")
+    saved = [getattr(raster, name) for name in names]
+    for name, fn in zip(names, (
+            lambda *a, **k: raster.raster_fwd_plain(*a, **k)[:2],
+            raster.raster_bwd_plain, split_fwd,
+            raster.raster_split_int_bwd_plain,
+            raster.raster_split_tail_bwd_plain, raster.fisher_moments_plain)):
+        setattr(raster, name, fn)
     try:
         yield
     finally:
-        raster.raster_fwd_cuda, raster.fisher_moments_cuda = saved
+        for name, fn in zip(names, saved):
+            setattr(raster, name, fn)
 
 
 def check_gains_plain(handler, state, candidates):
@@ -2380,6 +2432,668 @@ def phase_clis(dev, frames=CLI_FRAMES, gs_iters=200, post_iters=100,
     return results, total
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: the multi-device modules on the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4  # the ranks the image and the map are split over
+BAND_GRAD_TOL = 2e-5  # of scale (tests/test_sharded_pallas.py:22-68)
+DEPTH_FLIPS = 1e-3  # share of pixels whose median depth may move > 1e-4
+MAP_LRS = {"means3D": 1e-4, "rgb_colors": 2.5e-3, "unnorm_rotations": 1e-3,
+           "logit_opacities": 0.05, "log_scales": 1e-3}  # splatam.py's
+LEAF_NAMES = ("means", "colors", "opacities", "scales", "quats")
+
+
+def slam_keyframes(state, frames, n=PARALLEL_RANKS):
+    """What ``batched_map_step`` takes from the [slam] phase: its map, its
+    camera and layout, and its first ``n`` keyframes' estimated poses (all
+    of them where a short run kept fewer)."""
+    from splatam_torch.core.params import GAUSSIAN_KEYS, get_pose
+
+    keys = state.keyframe_time_indices[:n]
+    return {
+        "params": {k: state.params[k].detach().clone() for k in GAUSSIAN_KEYS},
+        "cam": state.cam, "layout": state.layout, "frames": frames,
+        "keyframes": keys,
+        "poses": [get_pose(state.params, t) for t in keys],
+    }
+
+
+class Launches:
+    """The launches a run of renders must make, per kernel."""
+
+    def __init__(self):
+        self.expect = {key: 0 for key in KERNEL_NAMES}
+
+    def count(self, layout, renders, backwards):
+        for key, v in expected_launches(layout, renders, backwards).items():
+            self.expect[key] += v
+
+
+def _bench_inputs(bench_size, dev):
+    """``bench.py``'s scene as the five render inputs (numpy), its camera,
+    and a fixed cotangent of the colour."""
+    import torch
+
+    from splatam_torch.bench.scene import make_scene
+    from splatam_torch.render.camera import setup_camera
+
+    p, w, h, k = make_scene(*bench_size)
+    opac = (1 / (1 + np.exp(-p["logit_opacities"][:, 0]))).astype(np.float32)
+    arrays = (p["means3D"], p["rgb_colors"], opac,
+              np.tile(np.exp(p["log_scales"]), (1, 3)), p["unnorm_rotations"])
+    cot = torch.tensor(np.random.default_rng(7).normal(
+        size=(3, h, w)).astype(np.float32), device=dev)
+    return p, arrays, setup_camera(w, h, k, np.eye(4), device=dev), cot
+
+
+def _prim_inputs(p):
+    """The map render_prim_sharded splits: the bench scene made anisotropic
+    (so the rotation gradients are signal), and a pose."""
+    rng = np.random.default_rng(8)
+    n = p["means3D"].shape[0]
+    prim = {key: p[key] for key in ("means3D", "rgb_colors",
+                                    "unnorm_rotations", "logit_opacities")}
+    prim["log_scales"] = (np.tile(p["log_scales"], (1, 3)) + rng.uniform(
+        -0.3, 0.3, (n, 3))).astype(np.float32)
+    pose = (np.array([0.9998, 0.01, -0.01, 0.005], np.float32),
+            np.array([0.02, -0.01, 0.03], np.float32))
+    return prim, pose
+
+
+def _leaves(xs, dev):
+    import torch
+
+    return [torch.tensor(a, device=dev, requires_grad=True) for a in xs]
+
+
+def _prim_leaves(prim, pose, dev):
+    import torch
+
+    return ({key: torch.tensor(v, device=dev, requires_grad=True)
+             for key, v in prim.items()}, _leaves(pose, dev))
+
+
+def _loss(out, cot):
+    """sum(color * cot) + sum(final T)."""
+    return (out.color * cot).sum() + out.final_t.sum()
+
+
+def _held(label, got, ref, atol, rtol=1e-7):
+    """got against ref at atol + rtol * |ref|; returns the max abs error."""
+    return check_close(label, got.detach(), ref.detach(), atol, rtol)
+
+
+def _depth_flips(label, got, ref, share=DEPTH_FLIPS):
+    off = float(((got - ref).abs() > 1e-4).float().mean())
+    if not off < share:
+        fail(f"{label}: median depth moved on {off:.4%} of pixels")
+    return off
+
+
+def _held_render(label, out, aux, ref, ref_aux):
+    """A sharded render against the unsharded one: color and final T at
+    1e-5, the median depth, the instances and saturation depths."""
+    import torch
+
+    _held(f"{label} color", out.color, ref.color, FWD_ATOL)
+    _held(f"{label} final T", out.final_t, ref.final_t, FWD_ATOL)
+    flips = _depth_flips(f"{label} depth", out.depth, ref.depth)
+    if aux.num_instances != ref_aux.num_instances:
+        fail(f"{label}: {aux.num_instances} instances, unsharded "
+             f"{ref_aux.num_instances}")
+    if not torch.equal(aux.sat_depth, ref_aux.sat_depth):
+        fail(f"{label}: saturation depths differ")
+    return flips
+
+
+def _grads_held(label, got, ref, tol=BAND_GRAD_TOL, names=None,
+                noise=()):
+    """Each leaf's gradient within ``tol`` of its own largest magnitude; the
+    ``noise`` ones (an isotropic scene's quaternions: rounding noise) within
+    ``tol`` of the largest of all."""
+    joint = max(float(r.abs().max()) for r in ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        name = names[i] if names else str(i)
+        scale = joint if name in noise else float(r.abs().max())
+        err = max_err(g, r)
+        if err > tol * max(scale, 1e-30) and err > 0:
+            fail(f"{label} gradient {name}: max err {err:.3g} against "
+                 f"scale {scale:.3g}")
+
+
+def _prim_reference(prim, pose, cam, cfg, cot6, n_ranks, dev, launches):
+    """render_prim_sharded's shards concatenated in this process: the
+    render, its aux, each shard's leaves and the pose's."""
+    from splatam_torch.parallel.prim_sharded import (
+        render_prim_shards,
+        shard_slices,
+    )
+
+    tq, (rot, tran) = _prim_leaves(prim, pose, dev)
+    shards = [{key: v[s].detach().requires_grad_() for key, v in tq.items()}
+              for s in shard_slices(tq["means3D"].shape[0], n_ranks)]
+    out, aux, records = render_prim_shards(shards, [None] * n_ranks, rot,
+                                           tran, cam, cfg)
+    _loss(out, cot6).backward()
+    launches.count(cfg.layout, n_ranks, n_ranks)
+    return out, aux, records, shards, (rot, tran)
+
+
+def _gloo_card_rank(rank, world, store, out_dir, bench_size, bounds, slam,
+                    device="cuda"):
+    """One of [parallel]'s gloo ranks, all on the one card: the real
+    wrappers at world size ``world``, each rank holding its result against
+    the same computation in its own process (the bands or shards in turn),
+    and its own launches against the renders it ran."""
+    import torch
+    import torch.distributed as dist
+
+    from splatam_torch.core.params import GAUSSIAN_KEYS
+    from splatam_torch.core.transforms import normalize
+    from splatam_torch.parallel.mesh import Mesh, make_mesh
+    from splatam_torch.parallel.pallas_sharded import (
+        rasterize_bands,
+        rasterize_rows_sharded,
+    )
+    from splatam_torch.parallel.prim_sharded import (
+        render_prim_sharded,
+        shard_slices,
+    )
+    from splatam_torch.render.binning import RasterConfig
+
+    global log
+    if rank:  # rank 0 speaks for the ranks
+        log = lambda *a: None  # noqa: E731
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        reset_launches()
+        launches = Launches()
+        p, arrays, cam, cot = _bench_inputs(bench_size, dev)
+        rb, grb, gcb = bounds
+        nr, nc = len(grb) - 1, len(gcb) - 1
+        meshes = {"rows": Mesh({"data": 1, "tiles": world}),
+                  "grid": Mesh({"ty": nr, "tx": nc})}
+        for layout in ("aligned", "split"):
+            cfg = RasterConfig(chunk=CHUNK, layout=layout)
+            for tag, rows, cols, axes in (("rows", rb, None, ("tiles", None)),
+                                          ("grid", grb, gcb, ("ty", "tx"))):
+                mesh = meshes[tag]
+                u = _leaves(arrays, dev)
+                t0 = time.perf_counter()
+                out, aux = rasterize_rows_sharded(
+                    u[0], u[1], u[2], u[3], normalize(u[4]), cam, cfg, mesh,
+                    axis_name=axes[0], band_starts=rows, col_starts=cols,
+                    axis_name_x=axes[1])
+                _loss(out, cot).backward()
+                synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                r = mesh.index(axes[0])
+                c = 0 if cols is None else mesh.index(axes[1])
+                live = int(rows[r + 1] > rows[r] and (
+                    cols is None or cols[c + 1] > cols[c]))
+                launches.count(layout, live, live)
+                v = _leaves(arrays, dev)
+                ref, ref_aux, cells = rasterize_bands(
+                    v[0], v[1], v[2], v[3], normalize(v[4]), cam, cfg, rows,
+                    cols)
+                _loss(ref, cot).backward()
+                n_live = sum(1 for (a, b), (e, f), _ in cells
+                             if b > a and f > e)
+                launches.count(layout, n_live, n_live)
+                label = f"[parallel] gloo x{world} {layout} {tag} rank {rank}"
+                _held_render(label, out, aux, ref, ref_aux)
+                _grads_held(label, [x.grad for x in u], [x.grad for x in v],
+                            names=LEAF_NAMES, noise=("quats",))
+                log(f"[parallel] gloo, {world} ranks on one card, {layout} "
+                    f"{tag}: rasterize_rows_sharded held to the bands in "
+                    f"turn; rank 0 forward + backward {ms:.1f} ms host clock"
+                    f" ({nvidia_smi_line()})")
+        prim, pose = _prim_inputs(p)
+        cot6 = torch.tensor(np.random.default_rng(9).normal(
+            size=(6,) + tuple(cot.shape[1:])).astype(np.float32), device=dev)
+        cfg = RasterConfig(chunk=CHUNK)
+        n = prim["means3D"].shape[0]
+        s = shard_slices(n, world)[rank]
+        tq, (rot, tran) = _prim_leaves({key: v[s] for key, v in prim.items()},
+                                       pose, dev)
+        out, aux = render_prim_sharded(tq, None, rot, tran, cam, cfg,
+                                       Mesh({"prims": world}))
+        _loss(out, cot6).backward()
+        launches.count(cfg.layout, 1, 1)
+        ref, ref_aux, _, shards, (rot0, tran0) = _prim_reference(
+            prim, pose, cam, cfg, cot6, world, dev, launches)
+        label = f"[parallel] gloo x{world} prims rank {rank}"
+        _held_render(label, out, aux, ref, ref_aux)
+        _grads_held(label, [tq[key].grad for key in GAUSSIAN_KEYS],
+                    [shards[rank][key].grad for key in GAUSSIAN_KEYS],
+                    names=GAUSSIAN_KEYS)
+        _grads_held(label + " pose", [rot.grad, tran.grad],
+                    [rot0.grad, tran0.grad], names=("rot", "tran"))
+        log(f"[parallel] gloo, {world} ranks on one card: render_prim_sharded "
+            f"(a shard of {n // world} per rank) held to the shards in turn")
+        _batched_step(dev, slam, make_mesh(n_tiles=world // 2, n_data=2),
+                      launches.count, f"gloo x{world} rank {rank}")
+        got = read_launches()
+        check_launches(f"parallel gloo rank {rank}", got, launches.expect)
+        with open(os.path.join(out_dir, f"launches{rank}.json"), "w") as f:
+            json.dump(got, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, bench_size=(200_000, 1200, 680), slam=None, reps=3):
+    """The multi-device modules on the card, after every other phase: the
+    per-band body over 4 row bands and a 4-cell grid, one after another in
+    this process, against the unsharded render (both layouts) with each
+    band's load and time; ``render_prim_sharded``'s 4 shards in this
+    process against the unsharded fused render; then the real wrappers in
+    a process group of world size 1 (NCCL, a file store under build/):
+    ``rasterize_rows_sharded``, ``render_prim_sharded`` and
+    ``batched_map_step`` over 4 keyframes of the [slam] map; and at world
+    size 4 over gloo, 4 processes sharing the card, each held to the same
+    computation in its own process; a degree-3 SH render through the
+    kernels against the plain versions; the dense oracle against B1/B2 and
+    the goldens. Launches are counted from here to the end, the ranks'
+    too, and must match the renders run."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from splatam_torch.core.losses import render_for_loss
+    from splatam_torch.core.params import GAUSSIAN_KEYS
+    from splatam_torch.core.transforms import normalize
+    from splatam_torch.parallel.mesh import Mesh, make_mesh
+    from splatam_torch.parallel.pallas_sharded import (
+        band_partition,
+        equal_bands,
+        grid_partition,
+        rasterize_band,
+        rasterize_bands,
+        rasterize_rows_sharded,
+        row_loads_from_counts,
+    )
+    from splatam_torch.parallel.prim_sharded import (
+        render_prim_sharded,
+        shard_slices,
+    )
+    from splatam_torch.render.binning import RasterConfig, bin_gaussians_csr
+    from splatam_torch.render.camera import setup_camera
+    from splatam_torch.render.geometry import grid_dims, preprocess
+    from splatam_torch.render.reference import rasterize_dense
+    from splatam_torch.render.render_tiled import rasterize_tiled
+    from splatam_torch.render.sh import rgb_to_sh_dc
+
+    smi = nvidia_smi_line()
+    n_ranks = PARALLEL_RANKS
+    p, arrays, cam, cot = _bench_inputs(bench_size, dev)
+    n = arrays[0].shape[0]
+    w, h = cam.image_width, cam.image_height
+    launches = Launches()
+    count = launches.count
+    result = {}
+
+    def leaves(xs=arrays):
+        return _leaves(xs, dev)
+
+    reset_launches()
+    # --- the partitions, from the whole view's binning counts ------------
+    with torch.no_grad():
+        t = [torch.as_tensor(a, device=dev) for a in arrays]
+        proj = preprocess(t[0], t[3], normalize(t[4]), cam)
+        counts = bin_gaussians_csr(
+            proj, cam, RasterConfig(chunk=CHUNK, layout="aligned"),
+            opacities=t[2]).counts.cpu().numpy()
+        del t, proj
+    grid_x, grid_y = grid_dims(cam)
+    loads = row_loads_from_counts(counts, grid_x)
+    mean = counts.sum() / n_ranks
+    rb = band_partition(loads, n_ranks)
+    eq = equal_bands(grid_y, n_ranks)
+    grb, gcb, cells = grid_partition(counts, grid_x, n_ranks)
+    imb = {
+        "equal": max(loads[eq[d]: eq[d + 1]].sum()
+                     for d in range(n_ranks)) / mean,
+        "rows": max(loads[rb[d]: rb[d + 1]].sum()
+                    for d in range(n_ranks)) / mean,
+        "grid": cells.max() / mean,
+    }
+    result["imbalance"] = imb
+    log(f"[parallel] {n} gaussians at {w}x{h}, {int(counts.sum())} "
+        f"instances over {grid_x}x{grid_y} tiles; {n_ranks} ranks: equal "
+        f"row bands {eq.tolist()} max/mean {imb['equal']:.3f}, balanced "
+        f"rows {rb.tolist()} {imb['rows']:.3f}, grid {list(cells.shape)} "
+        f"rows {grb.tolist()} cols {gcb.tolist()} cells "
+        f"{cells.reshape(-1).tolist()} {imb['grid']:.3f}")
+
+    # --- bands and cells one after another, against the unsharded render -
+    refs = {}
+    for layout in ("aligned", "split"):
+        cfg = RasterConfig(chunk=CHUNK, layout=layout)
+        ref_t = leaves()
+        ref, ref_aux = rasterize_tiled(ref_t[0], ref_t[1], ref_t[2], ref_t[3],
+                                       normalize(ref_t[4]), cam, cfg=cfg,
+                                       device=dev)
+        _loss(ref, cot).backward()
+        count(layout, 1, 1)
+        refs[layout] = (ref, ref_aux, [x.grad for x in ref_t])
+        for tag, (rows, cols) in (("rows", (rb, None)), ("grid", (grb, gcb))):
+            u = leaves()
+            out, aux, band_loads = rasterize_bands(
+                u[0], u[1], u[2], u[3], normalize(u[4]), cam, cfg, rows, cols)
+            _loss(out, cot).backward()
+            live = [bl for bl in band_loads
+                    if bl[0][1] > bl[0][0] and bl[1][1] > bl[1][0]]
+            count(layout, len(live), len(live))
+            label = f"[parallel] {layout} {tag}"
+            flips = _held_render(label, out, aux, ref, ref_aux)
+            _grads_held(label, [x.grad for x in u], refs[layout][2],
+                        names=LEAF_NAMES, noise=("quats",))
+            v = leaves()
+            per_band = []
+            for (r0, r1), (c0, c1), inst in live:
+                def step(r=(r0, r1), c=(c0, c1)):
+                    band, _ = rasterize_band(
+                        v[0], v[1], v[2], v[3], normalize(v[4]), cam, cfg,
+                        r, None if tag == "rows" else c)
+                    (band.color.sum() + band.final_t.sum()).backward()
+                per_band.append(cuda_ms(step, reps))
+            count(layout, len(live) * (reps + 1), len(live) * (reps + 1))
+            result[f"{layout}_{tag}_ms"] = per_band
+            mean_inst = sum(bl[2] for bl in live) / n_ranks
+            log(f"{label}: held to the unsharded render (depth flips "
+                f"{flips:.4%}); per band rows x cols, instances, forward + "
+                f"backward ms: " + "; ".join(
+                    f"{r0}-{r1} x {c0}-{c1} {inst} {ms:.3f}" for
+                    ((r0, r1), (c0, c1), inst), ms in zip(live, per_band))
+                + f"; max/mean instances "
+                f"{max(bl[2] for bl in live) / mean_inst:.3f}; slowest/mean "
+                f"band {max(per_band) / np.mean(per_band):.3f} ({smi})")
+        del ref_t
+
+    # --- render_prim_sharded's 4 shards in this process ------------------
+    prim, pose = _prim_inputs(p)
+    cot6 = torch.tensor(np.random.default_rng(9).normal(
+        size=(6, h, w)).astype(np.float32), device=dev)
+    cfg_p = RasterConfig(chunk=CHUNK)
+    tp, (rot, tran) = _prim_leaves(prim, pose, dev)
+    pref, pref_aux = render_for_loss(tp, rot, tran, cam, cfg_p,
+                                     gaussians_grad=True, camera_grad=True)
+    _loss(pref, cot6).backward()
+    count(cfg_p.layout, 1, 1)
+    pref_grads = [tp[key].grad for key in GAUSSIAN_KEYS] + [rot.grad,
+                                                            tran.grad]
+    out, aux, records, shards, (rot2, tran2) = _prim_reference(
+        prim, pose, cam, cfg_p, cot6, n_ranks, dev, launches)
+    _held_render("[parallel] prims", out, aux, pref, pref_aux)
+    for i, (shard, s) in enumerate(zip(shards, shard_slices(n, n_ranks))):
+        # each shard's gradients against its slice, at the whole map's scale
+        _grads_held(f"[parallel] prims shard {i}",
+                    [shard[key].grad for key in GAUSSIAN_KEYS],
+                    [g[s] for g in pref_grads[:5]], names=GAUSSIAN_KEYS)
+    _grads_held("[parallel] prims pose", [rot2.grad, tran2.grad],
+                pref_grads[5:], names=("rot", "tran"))
+    log(f"[parallel] render_prim_sharded: {n_ranks} shards of {n // n_ranks}"
+        f", {records.shape[0]} records of {records.shape[1]} floats "
+        f"concatenated, {aux.num_instances} instances: held to the unsharded "
+        f"fused render, each shard's gradients to its slice")
+    del shards, records
+
+    # --- the wrappers in a process group of world size 1 ------------------
+    store = os.path.join(ROOT, "build", f"parallel_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        for layout in ("aligned", "split"):
+            cfg = RasterConfig(chunk=CHUNK, layout=layout)
+            u = leaves()
+            out, aux = rasterize_rows_sharded(u[0], u[1], u[2], u[3],
+                                              normalize(u[4]), cam, cfg, mesh)
+            _loss(out, cot).backward()
+            count(layout, 1, 1)
+            ref, ref_aux, ref_grads = refs[layout]
+            _held_render(f"[parallel] {backend} {layout} rows", out, aux, ref,
+                         ref_aux)
+            _grads_held(f"[parallel] {backend} {layout} rows",
+                        [x.grad for x in u], ref_grads, names=LEAF_NAMES,
+                        noise=("quats",))
+        tq, (rot3, tran3) = _prim_leaves(prim, pose, dev)
+        out, aux = render_prim_sharded(tq, None, rot3, tran3, cam, cfg_p,
+                                       Mesh({"prims": 1}))
+        _loss(out, cot6).backward()
+        count(cfg_p.layout, 1, 1)
+        _held_render(f"[parallel] {backend} prims", out, aux, pref, pref_aux)
+        _grads_held(f"[parallel] {backend} prims",
+                    [tq[key].grad for key in GAUSSIAN_KEYS]
+                    + [rot3.grad, tran3.grad], pref_grads)
+        log(f"[parallel] {backend} at world size 1: rasterize_rows_sharded "
+            f"(both layouts) and render_prim_sharded through all-gather, "
+            f"reduce-scatter and all-reduce equal the unsharded renders")
+        del tq, refs
+        if slam is not None:
+            result["batched"] = _batched_step(dev, slam, mesh, count, backend)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+    # --- world size 4 over gloo, the ranks sharing the card ---------------
+    if dev.type == "cuda" and slam is not None:
+        t0 = time.time()
+        share = os.path.join(ROOT, "build", f"parallel_gloo_{os.getpid()}")
+        os.makedirs(share, exist_ok=True)
+        gloo_store = os.path.join(share, "store")
+        try:
+            mp.start_processes(
+                _gloo_card_rank, nprocs=n_ranks, join=True,
+                start_method="spawn",
+                args=(n_ranks, gloo_store, share, bench_size, (rb, grb, gcb),
+                      slam))
+        except Exception as e:  # a rank failed: it printed why
+            fail(f"[parallel] the gloo ranks on the card: {e}")
+        for r in range(n_ranks):
+            with open(os.path.join(share, f"launches{r}.json")) as f:
+                for key, v in json.load(f).items():
+                    launches.expect[key] += v  # each rank checked its own
+                    result.setdefault("rank_launches", {}).setdefault(
+                        key, 0)
+                    result["rank_launches"][key] += v
+        shutil.rmtree(share, ignore_errors=True)
+        log(f"[parallel] gloo at world size {n_ranks} on one card "
+            f"({n_ranks} processes): rasterize_rows_sharded (rows and grid, "
+            f"both layouts), render_prim_sharded and batched_map_step (2x2) "
+            f"each held to the same computation in one process, in "
+            f"{time.time() - t0:.1f} s; the ranks' launches "
+            f"{json.dumps(result['rank_launches'])}")
+
+    # --- a degree-3 SH render through the kernels and the plain versions -
+    shs = np.random.default_rng(10).normal(0, 0.2, (n, 16, 3)).astype(
+        np.float32)
+    shs[:, 0] = rgb_to_sh_dc(torch.as_tensor(p["rgb_colors"])).numpy()
+    for layout in ("aligned", "split"):
+        cfg = RasterConfig(chunk=CHUNK, layout=layout)
+        got = []
+        for plain in (False, True):
+            ts, tm = leaves((shs, arrays[0]))
+            with plain_kernels() if plain else contextlib.nullcontext():
+                out, _ = rasterize_tiled(tm, None, arrays[2], arrays[3],
+                                         arrays[4], cam, cfg=cfg, device=dev,
+                                         shs=ts, sh_degree=3)
+                _loss(out, cot).backward()
+            got.append((out, ts.grad, tm.grad))
+        count(layout, 1, 1)
+        (o1, gs1, gm1), (o0, gs0, gm0) = got
+        e = max(check_close(f"[parallel] SH {layout} color", o1.color.detach(),
+                            o0.color.detach(), FWD_ATOL),
+                check_close(f"[parallel] SH {layout} final T",
+                            o1.final_t.detach(), o0.final_t.detach(),
+                            FINAL_T_ATOL))
+        check_grad(f"[parallel] SH {layout} d/dshs", gs1, gs0)
+        check_grad(f"[parallel] SH {layout} d/dmeans", gm1, gm0)
+        log(f"[parallel] SH degree 3 (16 coefficients) {layout}: kernels "
+            f"against the plain versions, forward max err {e:.3g}, eval_sh's "
+            f"gradients through the kernels' backward within "
+            f"{GRAD_TOL:g} of scale")
+        del got, o1, o0
+
+    # --- the dense oracle against B1/B2 and the goldens ------------------
+    for name, scene in golden_scenes().items():
+        means, colors, opac_g, scales, quats, gw, gh, gk = scene
+        cam_g = setup_camera(gw, gh, gk, np.eye(4), device=dev)
+        xs = (means, colors, opac_g, scales, quats)
+        d = leaves(xs)
+        dense = rasterize_dense(d[0], d[1], d[2], d[3], normalize(d[4]), cam_g)
+        cot_g = torch.tensor(np.random.default_rng(1).normal(
+            size=(3, gh, gw)).astype(np.float32), device=dev)
+        _loss(dense, cot_g).backward()
+        u = leaves(xs)
+        tiled, _ = rasterize_tiled(u[0], u[1], u[2], u[3], normalize(u[4]),
+                                   cam_g, cfg=RasterConfig(chunk=CHUNK,
+                                                           layout="aligned"),
+                                   device=dev)
+        _loss(tiled, cot_g).backward()
+        count("aligned", 1, 1)
+        _held(f"[parallel] oracle {name} color", tiled.color, dense.color,
+              FWD_ATOL, FWD_RTOL)
+        _held(f"[parallel] oracle {name} final T", tiled.final_t,
+              dense.final_t, FINAL_T_ATOL, FWD_RTOL)
+        # per-pixel against per-tile order: median-depth tie flips aside
+        _depth_flips(f"[parallel] oracle {name} depth", tiled.depth,
+                     dense.depth, share=0.01)
+        _grads_held(f"[parallel] oracle {name}", [x.grad for x in u[:3]],
+                    [x.grad for x in d[:3]], tol=GRAD_TOL,
+                    names=LEAF_NAMES[:3])
+        g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
+        np.testing.assert_allclose(dense.color.detach().cpu().numpy(),
+                                   g["color"], atol=FWD_ATOL)
+        np.testing.assert_allclose(dense.final_t.detach().cpu().numpy(),
+                                   g["final_t"], atol=FWD_ATOL)
+        np.testing.assert_allclose(dense.depth.detach().cpu().numpy(),
+                                   g["depth"], atol=1e-4)
+    log("[parallel] dense oracle on the card: B1's forward and B2's "
+        "gradients on the three golden scenes held to rasterize_dense, "
+        "rasterize_dense held to tests/goldens")
+
+    got = read_launches()
+    for key, v in result.get("rank_launches", {}).items():
+        got[key] += v
+    check_launches("parallel", got, launches.expect)
+    return result, got
+
+
+def _batched_step(dev, slam, mesh, count, tag):
+    """``batched_map_step`` over the [slam] map's first keyframes at
+    1200x680 with shard_axis="tiles" on ``mesh``, against the mean of the
+    single-keyframe gradients and one Adam step."""
+    import torch
+
+    from splatam_torch.core.losses import slam_loss
+    from splatam_torch.core.optim import init_adam
+    from splatam_torch.core.params import GAUSSIAN_KEYS
+    from splatam_torch.data.synthetic import SyntheticDataset
+    from splatam_torch.parallel.sharded import batched_map_step
+    from splatam_torch.render.binning import RasterConfig
+    from splatam_torch.slam.pipeline import as_frame
+
+    cam, layout, keys = slam["cam"], slam["layout"], slam["keyframes"]
+    ds = SyntheticDataset(num_frames=slam["frames"], width=cam.image_width,
+                          height=cam.image_height, seed=0, device=dev)
+    frames = [as_frame(*ds[t][:2], dev) for t in keys]
+    count("aligned", len(keys), 0)  # the dataset renders its frames (B1)
+    ims = torch.stack([f[0] for f in frames])
+    depths = torch.stack([f[1] for f in frames])
+    rots = torch.stack([r for r, _ in slam["poses"]]).to(dev)
+    trans = torch.stack([t for _, t in slam["poses"]]).to(dev)
+    b = len(keys)
+    params = {key: v.to(dev, copy=True) for key, v in slam["params"].items()}
+    old = {key: v.clone() for key, v in params.items()}
+    active = torch.ones(params["means3D"].shape[0], dtype=torch.bool,
+                        device=dev)
+    opt = init_adam(params)
+    kw = dict(sil_thres=0.5, use_sil_for_loss=False,
+              ignore_outlier_depth_loss=False, loss_w_im=0.5,
+              loss_w_depth=1.0)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    _, opt, loss = batched_map_step(
+        params, active, opt, rots, trans, ims, depths, cam,
+        RasterConfig(chunk=CHUNK, layout=layout, shard_axis="tiles"),
+        MAP_LRS, mesh=mesh, **kw)
+    loss = float(loss)
+    synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / b
+    # this rank's keyframes, each rendered once (its band, where the tiles
+    # axis splits the image) and differentiated once
+    mine = b // mesh.shape["data"]
+    count(layout, mine, mine)
+    if not math.isfinite(loss):
+        fail(f"[parallel] {tag} batched_map_step loss {loss}")
+    moved = max(float((params[key] - old[key]).abs().max())
+                for key in GAUSSIAN_KEYS)
+    if not moved > 0:
+        fail(f"[parallel] {tag} batched_map_step did not move the parameters")
+    # the reference: each keyframe's gradient alone, their mean
+    mean = {key: torch.zeros_like(v) for key, v in old.items()}
+    losses = []
+    cfg = RasterConfig(chunk=CHUNK, layout=layout)
+    for i in range(b):
+        g = {key: v.clone().requires_grad_() for key, v in old.items()}
+        out = slam_loss(g, rots[i], trans[i], ims[i], depths[i], cam, cfg,
+                        tracking=False, **kw)
+        grads = torch.autograd.grad(out.loss, [g[key] for key in GAUSSIAN_KEYS])
+        for key, gr in zip(GAUSSIAN_KEYS, grads):
+            mean[key] += gr / b
+        losses.append(float(out.loss.detach()))
+    count(layout, b, b)
+    if abs(loss - np.mean(losses)) > 1e-5 * abs(np.mean(losses)):
+        fail(f"[parallel] {tag} batched_map_step loss {loss} against the "
+             f"mean of the keyframes' {np.mean(losses)}")
+    # one Adam step (eps 1e-15): its first moments are 0.1 g, its second
+    # 0.001 g^2, and the step moves each parameter by lr m^ / (sqrt(v^) +
+    # eps); the kernels' atomics reorder sums, so the sign of a gradient
+    # that is rounding noise (an isotropic map's rotations) may differ
+    # between two runs: the moments are held to the reference, the step
+    # to the moments it took
+    noise = (("unnorm_rotations",) if params["log_scales"].shape[1] == 1
+             else ())
+    _grads_held(f"[parallel] {tag} batched m",
+                [opt.mu[key] for key in GAUSSIAN_KEYS],
+                [0.1 * mean[key] for key in GAUSSIAN_KEYS], GRAD_TOL,
+                GAUSSIAN_KEYS, noise)
+    _grads_held(f"[parallel] {tag} batched v",
+                [opt.nu[key] for key in GAUSSIAN_KEYS],
+                [0.001 * mean[key] ** 2 for key in GAUSSIAN_KEYS],
+                2 * GRAD_TOL, GAUSSIAN_KEYS, noise)
+    for key in GAUSSIAN_KEYS:
+        step = MAP_LRS[key] * (opt.mu[key] / 0.1) / (
+            torch.sqrt(opt.nu[key] / 0.001) + 1e-15)
+        check_scaled(f"[parallel] {tag} batched step {key}", params[key],
+                     old[key] - step, 1e-6)
+    shape = "x".join(str(v) for v in mesh.shape.values())
+    log(f"[parallel] {tag}: batched_map_step over keyframes {keys} of the "
+        f"[slam] map ({old['means3D'].shape[0]} gaussians, {layout}) at "
+        f"{cam.image_width}x{cam.image_height} on a {shape} (data x tiles) "
+        f"mesh: loss {loss:.6f} (the keyframes' mean {np.mean(losses):.6f})"
+        f", {ms:.2f} ms per keyframe of the batch ({nvidia_smi_line()}); "
+        f"the moments are the mean gradient's, the step Adam's")
+    return {"loss": loss, "ms_per_keyframe": ms}
+
+
 PALLAS = "splatam_tpu/render/pallas_raster.py"
 SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
     "B1": ("raster_fwd", "raster_fwd.cu", f"{PALLAS}:567"),
@@ -2398,8 +3112,8 @@ SOURCES = {  # name, source in render/csrc/, the TPU kernel it replaces
 
 def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
           offline=None, post=None, realtime=None, probes=None, slam_cli=None,
-          clis=None):
-    """Phases 2-11 on ``dev``. Returns (the kernels' JSON entries, a
+          clis=None, parallel=None):
+    """Phases 2-12 on ``dev``. Returns (the kernels' JSON entries, a
     one-line summary)."""
     import torch
 
@@ -2437,6 +3151,7 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     post_, post_launches = phase_post_opt(dev, slam_state, frames,
                                           **(post or {}))
     log(f"[post_opt] phase in {time.time() - t:.1f} s")
+    slam_kf = slam_keyframes(slam_state, frames)
     del slam_state
     torch.cuda.empty_cache()
     t = time.time()
@@ -2449,12 +3164,19 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
     t = time.time()
     others, others_launches = phase_clis(dev, **(clis or {}))
     log(f"[clis] phase in {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.time()
+    par, par_launches = phase_parallel(dev, bench_size, slam_kf,
+                                       **(parallel or {}))
+    del slam_kf
+    log(f"[parallel] phase in {time.time() - t:.1f} s")
     # the main paths' launches: the bench, the probes, SLAM, offline
-    # training, refinement, realtime, the SLAM CLI, the other CLIs
+    # training, refinement, realtime, the SLAM CLI, the other CLIs, the
+    # multi-device modules
     for k in KERNEL_NAMES:
         launches[k] += (bench_launches[k] + probe_launches[k] + off_launches[k]
                         + post_launches[k] + rt_launches[k] + cli_launches[k]
-                        + others_launches[k])
+                        + others_launches[k] + par_launches[k])
     for k, e in probe_entries.items():
         times[k], bounds[k] = (e["ms"], e["plain_ms"]), e["bound"]
 
@@ -2490,7 +3212,11 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
         f"post_opt {others['post_opt']['ms_per_iter']:.2f} ms/iteration, NVS "
         f"PSNR {others['nvs']['psnr']:.2f} dB, SLAM with the keys "
         f"{others['slam_keys']['s_per_frame']:.2f} s/frame (knn "
-        f"{others['slam_keys']['knn_ms']:.1f} ms)")
+        f"{others['slam_keys']['knn_ms']:.1f} ms)"
+        f"; parallel: {PARALLEL_RANKS} bands max/mean instances "
+        + ", ".join(f"{tag} {v:.3f}" for tag, v in par["imbalance"].items())
+        + f", batched_map_step {par['batched']['ms_per_keyframe']:.2f} ms "
+        f"per keyframe")
     return kernels, summary
 
 

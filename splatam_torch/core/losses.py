@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from splatam_torch.core.transforms import normalize, transform_to_frame
+from splatam_torch.parallel.pallas_sharded import rasterize_rows_sharded
 from splatam_torch.render.binning import Binned, RasterConfig, bin_gaussians_csr
 from splatam_torch.render.camera import Camera
 from splatam_torch.render.geometry import preprocess
@@ -110,9 +111,10 @@ class LossOutput(NamedTuple):
 def render_for_loss(
     params, cam_rot, cam_tran, cam: Camera, cfg: RasterConfig,
     gaussians_grad: bool, camera_grad: bool, means2d_dummy=None,
-    binned: Binned | None = None,
+    binned: Binned | None = None, active: torch.Tensor | None = None,
 ):
-    """Transform to the frame + fused 6-channel render, image layout."""
+    """Transform to the frame + fused 6-channel render, image layout.
+    ``active`` (N,) bool culls the rows it is false for."""
     pts, rots, scales = _frame_inputs(
         params, cam_rot, cam_tran, gaussians_grad, camera_grad
     )
@@ -122,7 +124,7 @@ def render_for_loss(
     )
     res, aux, proj = rasterize_tiled_blocks(
         pts, feats, torch.sigmoid(params["logit_opacities"]), scales, rots,
-        cam, cfg, means2d_dummy=means2d_dummy, binned=binned,
+        cam, cfg, active=active, means2d_dummy=means2d_dummy, binned=binned,
     )
     return assemble_image(res, proj, feats.shape[-1], cam), aux
 
@@ -168,6 +170,8 @@ def slam_loss(
     median_scale: float = 50.0,
     median_thr: float | None = None,
     binned: Binned | None = None,
+    active: torch.Tensor | None = None,
+    mesh=None,
 ) -> LossOutput:
     """`get_loss` parity. tracking=True: pose-only gradients, per-pixel sums
     over the silhouette mask. tracking=False (mapping): Gaussian-only
@@ -177,7 +181,12 @@ def slam_loss(
 
     ``median_scale`` / ``median_thr`` shape the outlier-depth mask:
     error < (median_scale / 5) * median(error), the median capped at
-    ``median_thr`` (then the scale is 10)."""
+    ``median_thr`` (then the scale is 10).
+
+    ``active`` (N,) bool culls the rows it is false for. With
+    ``cfg.shard_axis == "tiles"`` and a ``mesh`` whose ``tiles`` axis has
+    more than one rank, the render is ``rasterize_rows_sharded``'s over that
+    axis (every rank of it computes the same loss)."""
     pts, rots, scales = _frame_inputs(
         params, cam_rot, cam_tran, gaussians_grad=not tracking,
         camera_grad=tracking or do_ba,
@@ -186,16 +195,30 @@ def slam_loss(
         [params["rgb_colors"], depth_silhouette_colors(pts, cam.viewmatrix)],
         dim=-1,
     )
-    # only RGB and the blended depth carry cotangents: the silhouette and
-    # depth^2 channels feed detached masks, the median depth is unused
-    res, aux, proj = rasterize_tiled_blocks(
-        pts, feats, torch.sigmoid(params["logit_opacities"]), scales, rots,
-        cam, cfg, means2d_dummy=means2d_dummy, binned=binned,
-        grad_feats=4, carry_depth_grad=False,
-    )
-    blocks = res.color
-    t_fin = res.aux[:, 1]
-    im_t = blocks[:, :3] + t_fin[:, None, :] * cam.bg[None, :3, None]
+    opac = torch.sigmoid(params["logit_opacities"])
+    if (cfg.shard_axis == "tiles" and mesh is not None
+            and mesh.shape.get("tiles", 1) > 1):
+        if means2d_dummy is not None or binned is not None:
+            raise ValueError("the tile-sharded loss bins per band: it takes "
+                             "no binned and no means2d_dummy")
+        out, aux = rasterize_rows_sharded(pts, feats, opac, scales, rots, cam,
+                                          cfg, mesh, active=active)
+        blocks = image_to_blocks(out.color, cam)
+        im_t = blocks[:, :3]  # the background is composed already
+        radius = out.radius
+    else:
+        # only RGB and the blended depth carry cotangents: the silhouette
+        # and depth^2 channels feed detached masks, the median depth is
+        # unused
+        res, aux, proj = rasterize_tiled_blocks(
+            pts, feats, opac, scales, rots, cam, cfg, active=active,
+            means2d_dummy=means2d_dummy, binned=binned,
+            grad_feats=4, carry_depth_grad=False,
+        )
+        blocks = res.color
+        t_fin = res.aux[:, 1]
+        im_t = blocks[:, :3] + t_fin[:, None, :] * cam.bg[None, :3, None]
+        radius = proj.radius
     depth_t = blocks[:, 3]
     sil_t = blocks[:, 4]
     uncertainty_t = (blocks[:, 5] - depth_t * depth_t).detach()
@@ -246,5 +269,5 @@ def slam_loss(
     loss = loss_w_im * losses["im"] + loss_w_depth * losses["depth"]
     losses["loss"] = loss
     return LossOutput(
-        loss=loss, losses=losses, radius=proj.radius, sat_depth=aux.sat_depth,
+        loss=loss, losses=losses, radius=radius, sat_depth=aux.sat_depth,
     )

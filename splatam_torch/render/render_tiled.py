@@ -34,6 +34,7 @@ from splatam_torch.render.raster import (
     pack_attrs,
     rasterize_tiles,
 )
+from splatam_torch.render.sh import eval_sh
 
 
 class RenderOutput(NamedTuple):
@@ -156,9 +157,16 @@ def rasterize_tiled(
     means2d_dummy=None,
     binned: Binned | BinnedSplit | None = None,
     device=None,
+    shs=None,
+    sh_degree: int = 0,
 ) -> tuple[RenderOutput, RenderAux]:
     """Render features (any F <= 8 channels; the first three blend against
     ``cam.bg``, the rest against 0) plus median depth and final T.
+
+    ``shs`` ((N, K, 3) spherical-harmonics coefficients, K >= (degree + 1)^2)
+    gives view-dependent RGB, evaluated per Gaussian at ``cam.campos``
+    (``render/sh.eval_sh``) before binning: it replaces ``colors`` where
+    they are None, else comes before them as the first three channels.
 
     Runs on ``device`` (None means CUDA; it raises when CUDA is absent).
     Inputs may be numpy arrays or tensors; they are moved to the device."""
@@ -172,9 +180,12 @@ def rasterize_tiled(
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
     act = None if active is None else torch.as_tensor(active, device=dev)
-    colors = on(colors)
+    means3d, colors = on(means3d), on(colors)
+    if shs is not None:
+        sh_rgb = eval_sh(sh_degree, on(shs), means3d, cam.campos)
+        colors = sh_rgb if colors is None else torch.cat([sh_rgb, colors], -1)
     res, aux, proj = rasterize_tiled_blocks(
-        on(means3d), colors, on(opacities), on(scales), on(rotations), cam,
+        means3d, colors, on(opacities), on(scales), on(rotations), cam,
         cfg, active=act, means2d_dummy=on(means2d_dummy), binned=binned,
     )
     return assemble_image(res, proj, colors.shape[-1], cam), aux

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from splatam_torch.device import resolve_device
 from splatam_torch.gs.offline import offline_splatting
+from splatam_torch.parallel.mesh import maybe_initialize_distributed
 from splatam_torch.run.common import (
     build_dataset,
     evaluate_and_save,
@@ -28,6 +29,7 @@ def main(argv=None):
     """Run the CLI on ``argv``. Returns (the final state, the evaluation's
     results)."""
     args = standard_argparser("Offline 3DGS training").parse_args(argv)
+    maybe_initialize_distributed(args.device)  # env-gated, as the JAX CLI
     dev = resolve_device(args.device)
     config = load_experiment_config(args.config)
     if args.run_name is not None:

@@ -17,6 +17,7 @@ import numpy as np
 
 from splatam_torch.device import resolve_device
 from splatam_torch.gs.post_opt import post_splatam_opt
+from splatam_torch.parallel.mesh import maybe_initialize_distributed
 from splatam_torch.run.common import (
     build_dataset,
     evaluate_and_save,
@@ -31,6 +32,7 @@ def main(argv=None):
     """Run the CLI on ``argv``. Returns (the final state, the evaluation's
     results)."""
     args = standard_argparser("Post-SplaTAM refinement").parse_args(argv)
+    maybe_initialize_distributed(args.device)  # env-gated, as the JAX CLI
     dev = resolve_device(args.device)
     config = load_experiment_config(args.config)
     if args.run_name is not None:

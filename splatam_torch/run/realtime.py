@@ -50,6 +50,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
 
     from splatam_torch.device import resolve_device
+    from splatam_torch.parallel.mesh import maybe_initialize_distributed
     from splatam_torch.realtime.handler import GainConfig
     from splatam_torch.run.common import (
         load_experiment_config,
@@ -57,6 +58,7 @@ def main(argv=None):
         seed_everything,
     )
 
+    maybe_initialize_distributed(args.device)  # env-gated, as the JAX CLI
     dev = resolve_device(args.device)
     config = load_experiment_config(args.config)
     if args.run_name is not None:

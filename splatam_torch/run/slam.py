@@ -20,6 +20,7 @@ import numpy as np
 
 from splatam_torch.device import resolve_device
 from splatam_torch.eval.runner import eval_sequence
+from splatam_torch.parallel.mesh import maybe_initialize_distributed
 from splatam_torch.render.binning import RasterConfig
 from splatam_torch.run.common import (
     build_datasets_with_resolutions,
@@ -38,6 +39,7 @@ def main(argv=None):
     results, or None where the evaluation failed, with ``eval_s``, its wall
     time)."""
     args = standard_argparser("Run SplaTAM SLAM").parse_args(argv)
+    maybe_initialize_distributed(args.device)  # env-gated, as the JAX CLI
     dev = resolve_device(args.device)
     config = load_experiment_config(args.config)
     if args.run_name is not None:

@@ -4,6 +4,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -46,6 +47,13 @@ def test_import_leaves_jax_out():
         "import splatam_torch.run.gaussian_splatting, splatam_torch.run.post_opt\n"
         "import splatam_torch.run.eval_novel_view, splatam_torch.run.export_ply\n"
         "import splatam_torch.run.viz\n"
+        "import splatam_torch.parallel.mesh, splatam_torch.parallel.sharded\n"
+        "import splatam_torch.parallel.pallas_sharded\n"
+        "import splatam_torch.parallel.prim_sharded\n"
+        "import splatam_torch.render.sh, splatam_torch.render.reference\n"
+        "import splatam_torch.utils.graphics, splatam_torch.utils.profiling\n"
+        "import splatam_torch.tools.stats, splatam_torch.tools.iphone_demo\n"
+        "import splatam_torch.tools.nerfcapture2dataset\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -91,6 +99,8 @@ def _entry_points():
     from splatam_torch.run import (eval_novel_view, export_ply,
                                    gaussian_splatting, post_opt, slam, viz)
     from splatam_torch.viz import render_trajectory
+    from splatam_torch.parallel.mesh import maybe_initialize_distributed
+    from splatam_torch.tools import iphone_demo
 
     pts = np.zeros((1, 3), np.float32)
     cam_cpu = setup_camera(16, 16, np.eye(3), np.eye(4), device="cpu")
@@ -132,7 +142,18 @@ def _entry_points():
         "eval_nvs": lambda: eval_nvs([], {}, 0, "eval", 0.5, 0, False),
         "render_trajectory": lambda: render_trajectory(
             {}, np.eye(3), np.eye(4), "recon", width=16, height=16),
+        "maybe_initialize_distributed": lambda: _with_env(
+            {"WORLD_SIZE": "1", "RANK": "0"}, maybe_initialize_distributed),
+        "iphone_demo.run_on_capture": lambda: iphone_demo.run_on_capture(
+            "capture", "seq"),
+        "iphone_demo.main": lambda: iphone_demo.main(
+            ["--capture_dir", "capture"]),
     }
+
+
+def _with_env(env, fn):
+    with mock.patch.dict(os.environ, env):
+        return fn()
 
 
 @pytest.mark.parametrize(
@@ -143,7 +164,9 @@ def _entry_points():
              "step_overhead.main", "fwd_stages.main", "slam.main",
              "rgbd_slam(dataset)", "eval_sequence", "gaussian_splatting.main",
              "post_opt.main", "eval_novel_view.main", "export_ply.main",
-             "viz.main", "eval_nvs", "render_trajectory"]
+             "viz.main", "eval_nvs", "render_trajectory",
+             "maybe_initialize_distributed", "iphone_demo.run_on_capture",
+             "iphone_demo.main"]
 )
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device given, entry points ask for CUDA and raise without it
@@ -151,3 +174,37 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("cli", ["slam", "gaussian_splatting", "post_opt",
+                                 "realtime"])
+def test_clis_call_maybe_initialize_distributed(cli, monkeypatch):
+    """Each CLI calls maybe_initialize_distributed first, as the JAX CLIs
+    do; with none of its variables set it starts no process group, and the
+    run goes on as a single process (here: to the device check, which
+    raises without CUDA)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from splatam_torch.parallel import mesh
+
+    module = importlib.import_module(f"splatam_torch.run.{cli}")
+    calls = []
+    real = mesh.maybe_initialize_distributed
+
+    def hook(device=None):
+        calls.append(device)
+        return real(device)
+
+    for key in ("WORLD_SIZE", "SPLATAM_TPU_COORDINATOR",
+                "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(key, raising=False)
+    # the realtime CLI imports it inside main, the others at the top
+    target = module if hasattr(module, "maybe_initialize_distributed") else mesh
+    monkeypatch.setattr(target, "maybe_initialize_distributed", hook)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(["config.py"])
+    assert calls == [None]
+    assert not dist.is_initialized()
