@@ -10,7 +10,8 @@ Phases, each of which must pass:
    ``csrc/raster_fisher.cu``; the measurement probes P1-P4
    ``csrc/probe_ablate.cu``, ``probe_ops.cu``, ``probe_ilp.cu``,
    ``probe_step.cu``, and B1's stage probe ``probe_fwd.cu``. Print the toolchain (and whether Triton imports) and
-   the card's name and power limit.
+   the card's name and power limit; count each tensor-core kernel's
+   mma.sync (HMMA) or wgmma (HGMMA) instructions in its SASS.
 2. Hold each kernel against its plain PyTorch version on the card: the
    three golden scenes (whose image outputs are also held against
    ``tests/goldens``), a saturating scene, an empty scene, the far-mean
@@ -50,11 +51,14 @@ Phases, each of which must pass:
    other stages per pixel at 1e-5 + 1e-4 rel, on the bench's aligned
    stream), P2 (every op and dtype at reps 3: f32 at 1e-5 + 1e-4 rel, bf16
    exactly), P3 (every case at reps 0, 1 and 4, within 1e-4 of each
-   output's largest magnitude) and P4 (every body, 1e-4 of
-   the output's largest magnitude) against their plain versions at the
-   tools' default sizes; then each probe's run as the main path, with
-   exact launch counts, printing the tools' tables and the rates against
-   the card's peaks. Then ``[fwd_stages]``: B1's stage probe
+   output's largest magnitude) and P4 (every body at the tool's 8000
+   steps and at 1, 131, 133 and 8001, which the persistent grid does not
+   divide, 1e-4 of the output's largest magnitude, two runs bitwise equal)
+   against their plain versions at the tools' default sizes; P4's library
+   time (one ``torch.mm`` computing its ``mxu``, held to the plain
+   version); P3's and P4's registers and blocks per SM; then each probe's
+   run as the main path, with exact launch counts, printing the tools'
+   tables and the rates against the card's peaks. Then ``[fwd_stages]``: B1's stage probe
    (``splatam_torch.bench.fwd_stages``: B1 cut after each stage, built
    from B1's helpers) on ``[timing]``'s B1 stream, its last stage held to
    B1's plain version.
@@ -153,7 +157,8 @@ Phases, each of which must pass:
    Every time beside the card's name and power limit; exact launches.
 
 The last lines are a JSON line of per-kernel numbers (all eleven kernels;
-P1's also carries its per-stage ms) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
+P1's also carries its per-stage ms; ``library_ms`` is P4's ``torch.mm``,
+null where no PyTorch call computes the kernel's function) and ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--frames N]  (SLAM frames, default 60)
@@ -402,56 +407,49 @@ def phase_build():
     check_sass()
 
 
-# Tensor-core products each kernel must keep in its SASS, per (source, a
-# substring of the mangled function name): P3's pass is 144 mma.sync per
-# 16-row band (36 non-zero 16 x 16 blocks of U x 2 n-tiles x 2 terms), dual
-# two passes; P4's mxu 72 per 16-row tile, the two-product bodies (mxu2dep,
-# mxu2ind) 144; B2's, B3c's and B3d's warp sums 20 per sub-batch (4
-# k-steps x 2 moment and 3 feature passes), as P1's from `moments` on;
-# B4's 24 (4 k-steps x 2 n-tiles of moments x 3 passes).
-MIN_HMMA = {
-    ("probe_ilp", "kernelILi1E"): 144, ("probe_ilp", "kernelILi2E"): 144,
-    ("probe_ilp", "kernelILi3E"): 288,
-    ("probe_step", "kernelILi2E"): 72, ("probe_step", "kernelILi3E"): 144,
-    ("probe_step", "kernelILi4E"): 144,
-    ("raster_bwd", "raster_bwd_kernel"): 20,
-    ("raster_split_bwd", "split_int_bwd_kernel"): 20,
-    ("raster_split_bwd", "split_tail_bwd_kernel"): 20,
-    ("raster_fisher", "raster_fisher_kernel"): 24,
-    ("probe_ablate", "kernelILi7E"): 20, ("probe_ablate", "kernelILi8E"): 20,
-    ("probe_ablate", "kernelILi9E"): 20,
+# Tensor-core instructions each kernel must keep in its SASS, per (source, a
+# substring of the mangled function name): (the opcode, the least count).
+# P3's pass is 16 HGMMA per band (8 k-blocks x 2 bf16 terms, wgmma
+# m64nNk16 over U's non-zero columns), dual two passes; P4's mxu 16 per
+# step (8 k-blocks x 2 m64 tiles per warpgroup), the two-product bodies
+# (mxu2dep, mxu2ind) 32; B2's, B3c's and B3d's warp sums 20 mma.sync
+# (HMMA) per sub-batch (4 k-steps x 2 moment and 3 feature passes), as
+# P1's from `moments` on; B4's 24 (4 k-steps x 2 n-tiles of moments x 3
+# passes).
+MIN_MMA = {
+    ("probe_ilp", "kernelILi1E"): ("HGMMA", 16),
+    ("probe_ilp", "kernelILi2E"): ("HGMMA", 16),
+    ("probe_ilp", "kernelILi3E"): ("HGMMA", 32),
+    ("probe_step", "kernelILi2E"): ("HGMMA", 16),
+    ("probe_step", "kernelILi3E"): ("HGMMA", 32),
+    ("probe_step", "kernelILi4E"): ("HGMMA", 32),
+    ("raster_bwd", "raster_bwd_kernel"): ("HMMA", 20),
+    ("raster_split_bwd", "split_int_bwd_kernel"): ("HMMA", 20),
+    ("raster_split_bwd", "split_tail_bwd_kernel"): ("HMMA", 20),
+    ("raster_fisher", "raster_fisher_kernel"): ("HMMA", 24),
+    ("probe_ablate", "kernelILi7E"): ("HMMA", 20),
+    ("probe_ablate", "kernelILi8E"): ("HMMA", 20),
+    ("probe_ablate", "kernelILi9E"): ("HMMA", 20),
 }
 
 
 def check_sass():
-    """Count the mma instructions (HMMA) ptxas kept in each tensor-core
-    kernel: it may merge products it can prove equal, and then a kernel
-    would do, or a probe time, less work than it reports."""
-    import shutil
-
+    """Count the tensor-core instructions (HMMA for mma.sync, HGMMA for
+    wgmma) ptxas kept in each tensor-core kernel: it may merge products it
+    can prove equal, and then a kernel would do, or a probe time, less work
+    than it reports."""
     from splatam_torch.render import raster
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in sorted({name for name, _ in MIN_HMMA}):
-        sass = subprocess.run([tool, "-sass", str(raster._library_path(src))],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
-        counts, fn = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-                counts[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                counts[fn] += 1
-        for (name, tag), least in MIN_HMMA.items():
+    for src in sorted({name for name, _ in MIN_MMA}):
+        counts = raster.sass_mma_counts(raster._library_path(src))
+        for (name, tag), (op, least) in MIN_MMA.items():
             if name != src:
                 continue
-            got = [c for f, c in counts.items() if tag in f]
+            got = [c[op] for f, c in counts.items() if tag in f]
             if len(got) != 1 or got[0] < least:
-                fail(f"{src} {tag}: {got} mma instructions in its SASS, "
+                fail(f"{src} {tag}: {got} {op} instructions in its SASS, "
                      f"expected at least {least}")
-            log(f"[build] {src} {tag}: {got[0]} mma instructions "
-                f"(at least {least})")
+            log(f"[build] {src} {tag}: {got[0]} {op} (at least {least})")
     log(f"card: {nvidia_smi_line()}")
 
 
@@ -1551,7 +1549,9 @@ PROBE_ITERS = {"P1": 30, "P2": 20, "P3": 20, "P4": 20}
 P2_REPS = (0, 16, 256)
 P2_CHECK_REPS = 3  # at 16 the mul_add, exp and roll chains run to overflow,
 # and an FMA's single rounding against two then grows 2x per rep
-P4_TOL = 1e-4  # of the largest magnitude: 8000 blocks' sums in atomic order
+P4_TOL = 1e-4  # of the largest magnitude: the plain version sums in
+# another order (the kernel's is fixed: its runs are compared bitwise)
+P4_EDGE_STEPS = (1, 131, 133, 8001)  # not multiples of the persistent grid
 # P3: every case at these reps, each output held to P3_TOL of its own
 # largest magnitude with no absolute floor (every pass scales by 1e-3, so
 # the mxu outputs are tiny). mxu at reps 1 holds one pass alone, where a
@@ -1619,6 +1619,55 @@ def phase_bench(dev, bench_size, rng, errs):
 def tri_nnz(chunk):
     """Non-zeros of a triangular 0/1 (chunk, chunk) matrix."""
     return chunk * (chunk + 1) // 2
+
+
+def p4_library_ms(stream, blk):
+    """The time of the one PyTorch call that computes P4's ``mxu``: A, the
+    steps' bf16 windows' row 0 side by side on all 256 rows (256,
+    steps * 128), times L stacked ``steps`` times (steps * 128, 128), with
+    f32 sums: ``torch.mm(..., out_dtype=torch.float32)`` where the installed
+    torch has it, else the f32 copies with TF32 off (bf16 products are exact
+    in f32). The operands are built outside the timed window; the result is
+    held to the plain version."""
+    import torch
+
+    from splatam_torch.bench import step_overhead as so
+
+    steps = blk.shape[0]
+    w = stream[0].reshape(steps, so.CHUNK)[blk.long()].bfloat16()
+    a = w.reshape(1, -1).expand(so.NPIX, -1).contiguous()
+    tril = torch.tril(torch.ones(so.CHUNK, so.CHUNK, device=stream.device))
+    b = tril.bfloat16().repeat(steps, 1)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        try:
+            torch.mm(a[:, :so.CHUNK], b[:so.CHUNK], out_dtype=torch.float32)
+            kind = "bf16 operands, out_dtype float32"
+
+            def call():
+                return torch.mm(a, b, out_dtype=torch.float32)
+        except (TypeError, RuntimeError):
+            a, b = a.float(), b.float()
+            kind = "f32 copies, TF32 off"
+
+            def call():
+                return torch.mm(a, b)
+        got = call()
+        torch.cuda.synchronize()
+        ref = so.step_plain(stream, blk, "mxu")
+        err, scale = max_err(got, ref), float(ref.abs().max())
+        if err > P4_TOL * scale:
+            fail(f"P4's library call: max err {err:.3g} against scale "
+                 f"{scale:.3g}")
+        ms = cuda_ms(call, 5)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    log(f"[probes] P4 library: torch.mm ({kind}) on ({so.NPIX}, "
+        f"{steps * so.CHUNK}) x ({steps * so.CHUNK}, {so.CHUNK}): {ms:.4f} ms, "
+        f"max err {err:.3g} of {scale:.3g}")
+    return ms
 
 
 def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
@@ -1714,24 +1763,37 @@ def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
     log(f"[probes] P3: every case at reps {P3_CHECK_REPS} within {P3_TOL:g} "
         f"of each output's largest magnitude")
 
-    # P4: every body, permuted index table
-    stream, blk = step_overhead.inputs(p4_steps, dev)
+    # P4: every body, permuted index table, at the tool's steps and at
+    # counts the persistent grid does not divide; two runs bitwise equal
     e4 = 0.0
-    for body in step_overhead.BODIES:
-        got = step_overhead.step_cuda(stream, blk, body)
-        torch.cuda.synchronize()
-        ref = step_overhead.step_plain(stream, blk, body)
-        err = max_err(got, ref)
-        scale = float(ref.abs().max())
-        if err > P4_TOL * scale and err > 0:
-            fail(f"P4 {body}: max err {err:.3g} against scale {scale:.3g}")
-        log(f"[probes] P4 {body}: max err {err:.3g} (scale {scale:.3g}, "
-            f"limit {P4_TOL:g} of scale)")
-        e4 = max(e4, err)
+    for steps in (p4_steps, *P4_EDGE_STEPS):
+        stream, blk = step_overhead.inputs(steps, dev, seed=steps)
+        for body in step_overhead.BODIES:
+            got = step_overhead.step_cuda(stream, blk, body)
+            again = step_overhead.step_cuda(stream, blk, body)
+            torch.cuda.synchronize()
+            ref = step_overhead.step_plain(stream, blk, body)
+            err = max_err(got, ref)
+            scale = float(ref.abs().max())
+            if err > P4_TOL * scale and err > 0:
+                fail(f"P4 {body} at {steps} steps: max err {err:.3g} against "
+                     f"scale {scale:.3g}")
+            if not torch.equal(got, again):
+                fail(f"P4 {body} at {steps} steps: two runs differ")
+            log(f"[probes] P4 {body} at {steps} steps: max err {err:.3g} "
+                f"(scale {scale:.3g}, limit {P4_TOL:g} of scale), two runs "
+                f"equal")
+            e4 = max(e4, err)
+    stream, blk = step_overhead.inputs(p4_steps, dev)
     p4_plain = cuda_ms(lambda: step_overhead.step_plain(stream, blk, "mxu"), 2,
                        warmup=0)
+    p4_library = p4_library_ms(stream, blk)
     del stream, blk
     torch.cuda.empty_cache()
+    for k, names in (("P3", ilp_probe.CASES), ("P4", step_overhead.BODIES)):
+        occ = [raster.KERNELS[k].occupancy(i) for i in range(len(names))]
+        log(f"[probes] {k} registers, blocks per SM: " + ", ".join(
+            f"{n} {r}, {b}" for n, (r, b) in zip(names, occ)))
 
     # the main path: each probe's run, at the tools' defaults
     reset_launches()
@@ -1770,12 +1832,12 @@ def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
     pass_flops = 2 * 256 * tri_nnz(128) * 2  # two terms, U's non-zeros
     log(f"[probes] P3 rate: vpu {vpu_flops / vpu_ns / 1e3:.2f} TFLOP/s "
         f"({vpu_flops / vpu_ns * 1e9 / F32_PEAK_FLOPS:.1%} of f32 peak); a "
-        f"two-term pass {mxu_ns / 4:.2f} ns per block, "
+        f"two-term pass {mxu_ns / 4:.2f} ns per step, "
         f"{pass_flops * 4 / mxu_ns / 1e3:.1f} TFLOP/s on U's non-zeros "
         f"({pass_flops * 4 / mxu_ns * 1e9 / BF16_TC_FLOPS:.1%} of the bf16 "
         f"tensor-core peak)")
     for body in step_overhead.BODIES:
-        log(f"[probes] P4 {body}: {p4[body] * 1e6 / p4_steps:.2f} ns per block")
+        log(f"[probes] P4 {body}: {p4[body] * 1e6 / p4_steps:.2f} ns per step")
 
     # bounds of the entries' runs: P1 full (B2), P2 f32 mul_add at reps 16,
     # P3 chain at reps 4, P4 mxu
@@ -1792,14 +1854,16 @@ def phase_probes(dev, bench_size, errs, p2_steps=2000, p3_steps=2000,
                           p3_blocks * elems * 4 * (8 * 3 + 2),
                           p3_blocks * 4 * pass_flops))
     entries["P4"] = dict(
-        ms=p4["mxu"], plain_ms=p4_plain, err=e4,
+        ms=p4["mxu"], plain_ms=p4_plain, err=e4, library_ms=p4_library,
         bound=bound_ms(p4_steps * (16 * 128 * 4 + 4) + elems * 4,
                           p4_steps * elems, p4_steps * 256 * tri_nnz(128) * 2))
     log(f"[probes] P1 bound: B2's on this stream, {pairs} pairs")
     for k, e in entries.items():
         errs[k] = e["err"]
+        lib = e.get("library_ms")
         log(f"[probes] {k}: {e['ms']:.4f} ms, plain {e['plain_ms']:.2f} ms, "
-            f"bound {e['bound'][0]:.4f} ms ({e['bound'][1]})")
+            f"bound {e['bound'][0]:.4f} ms ({e['bound'][1]})"
+            + ("" if lib is None else f", library {lib:.4f} ms"))
     return entries, launches
 
 
@@ -3179,6 +3243,7 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
                         + others_launches[k] + par_launches[k])
     for k, e in probe_entries.items():
         times[k], bounds[k] = (e["ms"], e["plain_ms"]), e["bound"]
+    library = {k: e.get("library_ms") for k, e in probe_entries.items()}
 
     kernels = []
     for k in KERNEL_NAMES:
@@ -3189,7 +3254,7 @@ def smoke(dev, frames, bench_size=(200_000, 1200, 680), slam_size=None,
             "launches": launches[k], "max_abs_err": errs[k],
             "ms": times[k][0], "plain_ms": times[k][1],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-            "library_ms": None,
+            "library_ms": library.get(k),
         })
     kernels[KERNEL_NAMES.index("P1")]["stages_ms"] = probe_entries["P1"]["stages"]
     summary = (

@@ -9,7 +9,8 @@ split of x times the upper-triangular 0/1 matrix, summed in f32),
 ``chain`` (4 FMA ops, a pass, 4 FMA ops, per rep), ``dual`` (two
 independent chains) and ``vpu_dual``. dual/chain near 1 means the second
 chain hides in the first one's latency; near 2, none does. Kernel
-``csrc/probe_ilp.cu`` (``raster.KERNELS["P3"]``, mma.sync); ``ilp_plain``
+``csrc/probe_ilp.cu`` (``raster.KERNELS["P3"]``: wgmma passes, one
+persistent block per SM over the steps' 64-row bands); ``ilp_plain``
 beside it.
 
 Usage: python -m splatam_torch.bench.ilp_probe [--steps 2000] [--reps 4]
@@ -28,6 +29,7 @@ from splatam_torch.render import raster
 NPIX = 256
 CHUNK = 128
 ROWS = 16
+BAND = 64  # rows of a warpgroup's band in the kernel
 CASES = ("vpu", "mxu", "chain", "dual", "vpu_dual")
 
 
@@ -90,9 +92,11 @@ def ilp_cuda(a: torch.Tensor, b: torch.Tensor, case: str, reps: int):
     for name, t in (("a", a), ("b", b)):
         raster._check(t, name, torch.float32, (ROWS, steps * CHUNK))
     oa, ob = torch.empty_like(a), torch.empty_like(b)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    ctas = min(sms, steps * (NPIX // BAND))  # persistent: one block per SM
     raster.ILP_KERNEL.launch(a.device, a.data_ptr(), b.data_ptr(),
-                             CASES.index(case), reps, steps, oa.data_ptr(),
-                             ob.data_ptr())
+                             CASES.index(case), reps, steps, ctas,
+                             oa.data_ptr(), ob.data_ptr())
     return oa, ob
 
 

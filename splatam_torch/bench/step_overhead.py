@@ -1,18 +1,22 @@
-"""P4: the fixed cost of a block on the card.
+"""P4: the fixed cost of a step on the card.
 
-Counterpart of ``tools/step_overhead.py`` at its chunk, 128: a grid of
-``steps`` blocks, each reading its (16, 128) window of a stream through an
-index table (the TPU's scalar-prefetched ``blk``) and adding a (256, 128)
-product into one (256, 128) output, under five bodies (``BODIES``):
-nothing, the window's row 0 broadcast, and tensor-core products with the
+Counterpart of ``tools/step_overhead.py`` at its chunk, 128: ``steps``
+steps, each reading its (16, 128) window of a stream through an index
+table (the TPU's scalar-prefetched ``blk``) and adding a (256, 128)
+product into one (256, 128) sum, under five bodies (``BODIES``): nothing,
+the window's row 0 broadcast, and tensor-core products with the
 lower-triangular 0/1 matrix (bf16 operands, as the TPU's
 ``Precision.DEFAULT`` rounds them; f32 sums). The tool's ``mxu512`` (one
 wide matmul against ``mxu2ind``'s two) has no counterpart: on the tensor
-cores both are the same instructions. The time per block of ``empty`` is the pure per-block cost; the
-other bodies add the window, the products and the accumulate (atomics
-here, where the TPU kept a scratch sum across its sequential grid).
-Kernel ``csrc/probe_step.cu`` (``raster.KERNELS["P4"]``); ``step_plain``
-beside it.
+cores both are the same instructions. The TPU ran the steps as a
+sequential grid with a scratch sum; the kernel runs them as a loop in one
+persistent block per SM (``persistent_ctas``, each block's contiguous
+steps ``cta_steps``), with the windows staged ahead into shared memory, the
+sum in registers, and the blocks' partial sums added in a fixed order by a
+second kernel. The time per step of ``empty`` is the per-step fixed cost
+(the window staged and released); the other bodies add the products.
+Kernel ``csrc/probe_step.cu`` (``raster.KERNELS["P4"]``; one launch
+counts the persistent kernel and its sum); ``step_plain`` beside it.
 
 Usage: python -m splatam_torch.bench.step_overhead [--steps 8000]
   [--iters 20] [--device cuda]
@@ -60,6 +64,21 @@ def step_plain(stream: torch.Tensor, blk: torch.Tensor,
     return prod.sum(0).expand(NPIX, CHUNK).contiguous()
 
 
+MAX_CTA_STEPS = 4096  # a block's slice of the index table in shared memory
+
+
+def persistent_ctas(steps: int, sms: int) -> int:
+    """The persistent kernel's blocks: one per SM, none without a step, and
+    enough that none walks more than ``MAX_CTA_STEPS``."""
+    return max(1, min(steps, sms), -(-steps // MAX_CTA_STEPS))
+
+
+def cta_steps(c: int, steps: int, ctas: int) -> range:
+    """The contiguous steps block ``c`` of ``ctas`` walks: the kernel's
+    ``[c * steps / ctas, (c + 1) * steps / ctas)`` in integer division."""
+    return range(c * steps // ctas, (c + 1) * steps // ctas)
+
+
 def step_cuda(stream: torch.Tensor, blk: torch.Tensor,
               body: str) -> torch.Tensor:
     """Launch P4 over ``blk`` (steps,) int32 windows of ``stream``
@@ -67,9 +86,16 @@ def step_cuda(stream: torch.Tensor, blk: torch.Tensor,
     steps = blk.shape[0]
     raster._check(stream, "stream", torch.float32, (ROWS, steps * CHUNK))
     raster._check(blk, "blk", torch.int32, (steps,))
-    out = torch.zeros((NPIX, CHUNK), dtype=torch.float32, device=stream.device)
+    if stream.data_ptr() % 16:
+        raise ValueError("stream must be 16-byte aligned (bulk copies)")
+    sms = torch.cuda.get_device_properties(stream.device).multi_processor_count
+    ctas = persistent_ctas(steps, sms)
+    partial = torch.empty((ctas, NPIX, CHUNK), dtype=torch.float32,
+                          device=stream.device)
+    out = torch.empty((NPIX, CHUNK), dtype=torch.float32, device=stream.device)
     raster.STEP_KERNEL.launch(stream.device, stream.data_ptr(), blk.data_ptr(),
-                              BODIES.index(body), steps, out.data_ptr())
+                              BODIES.index(body), steps, ctas,
+                              partial.data_ptr(), out.data_ptr())
     return out
 
 
@@ -88,7 +114,7 @@ def inputs(steps, device, seed=0):
 
 
 def run(steps=8000, iters=20, device=None):
-    """Time every body; prints per-pass ms and per-block µs. Returns
+    """Time every body; prints per-pass ms and per-step µs. Returns
     {body: ms per launch}."""
     dev = resolve_device(device)
     stream, blk = inputs(steps, dev)
@@ -97,7 +123,7 @@ def run(steps=8000, iters=20, device=None):
     print(f"[step] {device_name(dev)}: steps {steps}, chunk {CHUNK}, "
           f"{iters} launches per body", flush=True)
     for b in BODIES:
-        print(f"[step] {b:<9} per-pass {ms[b]:8.4f} ms  per-block "
+        print(f"[step] {b:<9} per-pass {ms[b]:8.4f} ms  per-step "
               f"{ms[b] * 1e3 / steps:7.4f} us", flush=True)
     return ms
 

@@ -125,7 +125,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "raster_common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
@@ -158,6 +158,27 @@ def build_kernels(names=KERNEL_SOURCES) -> dict:
             + "\n".join(logs[n] for n in failed)
         )
     return logs
+
+
+def sass_mma_counts(library: Path) -> dict:
+    """{kernel function: {"HMMA": n, "HGMMA": n, "DEPBAR": n}}: the
+    mma.sync and wgmma instructions ptxas kept in each kernel of a built
+    library, and its waits on wgmma groups (``WARPGROUP.DEPBAR``; one after
+    every HGMMA is a serialized pipeline), from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "DEPBAR": 0}
+        elif fn is not None:
+            for op in ("HMMA", "HGMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
+            counts[fn]["DEPBAR"] += "WARPGROUP.DEPBAR" in line
+    return counts
 
 
 class CudaKernel:
@@ -246,10 +267,11 @@ FISHER_KERNEL = CudaKernel("raster_fisher", "raster_fisher", 3, 3, 3)
 ABLATE_KERNEL = CudaKernel("probe_ablate", "probe_ablate", 3, 6, 6)
 # probe_ops(x, op, bf16, reps, steps, chunk, out, stream)
 OPS_KERNEL = CudaKernel("probe_ops", "probe_ops", 1, 5, 1)
-# probe_ilp(a, b, case, reps, steps, oa, ob, stream)
-ILP_KERNEL = CudaKernel("probe_ilp", "probe_ilp", 2, 3, 2)
-# probe_step(stream, blk, body, steps, out, stream)
-STEP_KERNEL = CudaKernel("probe_step", "probe_step", 2, 2, 1)
+# probe_ilp(a, b, case, reps, steps, ctas, oa, ob, stream)
+ILP_KERNEL = CudaKernel("probe_ilp", "probe_ilp", 2, 4, 2)
+# probe_step(stream, blk, body, steps, ctas, partial, out, stream): the
+# persistent kernel and its fixed-order sum, one launch of P4
+STEP_KERNEL = CudaKernel("probe_step", "probe_step", 2, 3, 2)
 KERNELS = {
     "B1": FWD_KERNEL, "B2": BWD_KERNEL, "B3a": SPLIT_INT_FWD_KERNEL,
     "B3b": SPLIT_TAIL_FWD_KERNEL, "B3c": SPLIT_INT_BWD_KERNEL,

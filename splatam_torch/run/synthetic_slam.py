@@ -7,7 +7,7 @@ GPU unless ``--device cpu`` is given.
 
 Usage: python -m splatam_torch.run.synthetic_slam [--frames 20]
        [--width 320] [--height 240] [--track_iters 20] [--map_iters 30]
-       [--window 10] [--device cuda]
+       [--window 10] [--fixed_binning] [--device cuda]
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ def build_config(args) -> dict:
             "use_sil_for_loss": True,
             "sil_thres": 0.99,
             "ignore_outlier_depth_loss": False,
+            "fixed_binning": args.fixed_binning,
             "loss_weights": {"im": 0.5, "depth": 1.0},
             "lrs": {"cam_unnorm_rots": 2e-3, "cam_trans": 4e-3},
         },
@@ -81,6 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--map_iters", type=int, default=30)
     p.add_argument("--window", type=int, default=10,
                    help="mapping_window_size (Replica uses 24)")
+    p.add_argument("--fixed_binning", action="store_true",
+                   help="tracking bins once per frame, at its start pose")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)

@@ -239,6 +239,19 @@ def test_step_plain_matches_numpy(body):
     np.testing.assert_allclose(got / scale, ref / scale, atol=1e-5)
 
 
+@pytest.mark.parametrize("steps", [1, 131, 133, 8001, 600_001])
+def test_step_ctas_cover_every_step_once(steps):
+    """P4's persistent grid on a 132-SM card: every step in exactly one
+    block's contiguous range, no block without a step, none past the
+    kernel's shared index slice."""
+    ctas = step_overhead.persistent_ctas(steps, 132)
+    ranges = [step_overhead.cta_steps(c, steps, ctas) for c in range(ctas)]
+    assert [t for r in ranges for t in r] == list(range(steps))
+    assert 1 <= min(map(len, ranges))
+    assert max(map(len, ranges)) <= step_overhead.MAX_CTA_STEPS
+    assert ctas == min(steps, 132) or steps > 132 * step_overhead.MAX_CTA_STEPS
+
+
 # ---------------------------------------------------------------------------
 # P1 on a golden scene against JAX's render, preprocess and VJP
 # ---------------------------------------------------------------------------

@@ -172,3 +172,25 @@ def test_synthetic_frames_match_jax(runs):
         both = (depth > 0) & (jdepth > 0)
         assert both.mean() > 0.95
         np.testing.assert_allclose(depth[both], jdepth[both], atol=1e-4)
+
+
+@pytest.mark.parametrize("flags", [[], ["--fixed_binning"]])
+def test_synthetic_cli_config_matches_jax(flags):
+    """The port's synthetic-SLAM CLI builds the JAX CLI's config for the
+    same arguments, ``tracking.fixed_binning`` included; only ``raster``
+    differs (the port ignores the JAX capacities and backend)."""
+    import argparse
+
+    from splatam_torch.run import synthetic_slam as port_cli
+    from splatam_tpu.run import synthetic_slam as jax_cli
+
+    argv = ["--frames", "7", "--width", "96", "--height", "64",
+            "--track_iters", "3", "--map_iters", "5", *flags]
+    port = port_cli.build_config(port_cli.parse_args(argv))
+    ref = jax_cli.build_config(argparse.Namespace(
+        frames=7, width=96, height=64, track_iters=3, map_iters=5,
+        backend="auto", fixed_binning=bool(flags)))
+    assert port["tracking"]["fixed_binning"] is bool(flags)
+    port.pop("raster")
+    ref.pop("raster")
+    assert port == ref
