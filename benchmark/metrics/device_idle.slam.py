@@ -1,0 +1,6 @@
+"""Share of the traced SLAM frames in which no device operation ran (%)."""
+from benchmark.core import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx, "slam")

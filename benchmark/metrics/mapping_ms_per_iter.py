@@ -1,0 +1,6 @@
+"""Mapping's milliseconds per iteration over the window's frames (slam/mapping; the program's SlamState.timing)."""
+from benchmark.core import readers
+
+
+def read(ctx):
+    return readers.mean_ms(ctx.get("mapping_iter"))

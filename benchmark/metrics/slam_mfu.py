@@ -1,0 +1,6 @@
+"""The traced SLAM frames' counted operations over their time and the card's f32 peak (%)."""
+from benchmark.core import readers
+
+
+def read(ctx):
+    return readers.mfu_pct(ctx, "slam")
